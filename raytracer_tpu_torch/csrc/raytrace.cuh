@@ -1,0 +1,446 @@
+// Per-ray device code shared by the two kernels in raytrace.cu.
+//
+// Replaces the traversal that the JAX package's TPU kernels inline:
+// raytracer_tpu/render/pallas_split.py::_closest_pass (654-902) and its
+// helpers _pre_sphere (170), _pre_planewall (196), _leafbox_gate (152),
+// _tri_test (224) and _reduce_candidates (326), plus the bounce loop of
+// raytracer_tpu/render/wholeframe.py::_wholeframe_kernel (75-385).
+//
+// The spec is the per-ray result, not the TPU's packet mechanics: a lane's
+// hit never depends on which other rays share its packet, so each thread
+// walks the skip-pointer tree alone. Every arithmetic expression keeps the
+// JAX kernel's order of operations; build with -fmad=false so that no
+// multiply-add is contracted and edge accepts stay in step with the plain
+// PyTorch versions. min/max propagate NaN like jnp.minimum/jnp.maximum
+// (the slab test relies on IEEE 1/0 = inf and on NaN failing compares).
+#pragma once
+
+namespace rt {
+
+constexpr float INF = 1e30f;
+constexpr float PARK_ORIGIN = 2e30f;
+constexpr float PARK_DIR = 0.5773502691896258f;
+constexpr float SHADOW_FACTOR = 0.3f;
+// background mix(dark, sky, y/H) as the JAX kernel folds it: dark + (sky - dark) * f
+constexpr float BG_DARK_R = 0.05f, BG_DARK_G = 0.07f, BG_DARK_B = 0.1f;
+constexpr float BG_SPAN_R = (float)(0.5 - 0.05);
+constexpr float BG_SPAN_G = (float)(0.7 - 0.07);
+constexpr float BG_SPAN_B = (float)(1.0 - 0.1);
+
+// Row layouts (render/split_scene.py).
+constexpr int PRE_W = 40, TRI_W = 36, NODE_W = 8, ATTR_W = 15;
+constexpr int G_GID = 24, G_B0X = 25, G_RID = 39;
+constexpr int T_NX = 0, T_PD = 3, T_E1X = 4, T_E2X = 7, T_P1X = 10;
+constexpr int T_S0 = 13, T_S1 = 14, T_R11 = 15, T_R01 = 16, T_R00 = 17;
+constexpr int T_GID = 18, T_RID = 27, T_EVX = 28, T_CV = 31, T_EWX = 32,
+              T_CW = 35;
+// Triangle tests (config.py TRI_*).
+constexpr int TRI_RAW = 0, TRI_GRAM = 1, TRI_MT = 2;
+
+struct Tables {
+  const int* leaf_start;   // (m,)
+  const int* leaf_count;   // (m,) 0 for internal nodes
+  const int* skip;         // (m,)
+  const float* nodes;      // (m, NODE_W): box min xyz, max xyz
+  const float* pre;        // (n_other, PRE_W): spheres first
+  const float* tri;        // (n_tri, TRI_W) in DFS-leaf order
+  int m, n_other, n_sph;
+};
+
+// Tests run by one thread, summed into the kernel's optional stats buffer.
+struct Counts {
+  unsigned pre, node, tri;
+};
+
+struct Hit {
+  float t, id, nx, ny, nz;
+};
+
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ int ldi(const int* p) { return __ldg(p); }
+
+// jnp.minimum / jnp.maximum: NaN in either operand gives NaN.
+__device__ __forceinline__ float jmin(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float jmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+  float ix, iy, iz, aa;   // 1/d per axis and d.d
+};
+
+__device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
+                                        float dx, float dy, float dz) {
+  Ray r;
+  r.ox = ox; r.oy = oy; r.oz = oz; r.dx = dx; r.dy = dy; r.dz = dz;
+  r.aa = dx * dx + dy * dy + dz * dz;
+  r.ix = 1.0f / dx;
+  r.iy = 1.0f / dy;
+  r.iz = 1.0f / dz;
+  return r;
+}
+
+// Slab test of the box b[0..5] = (min xyz, max xyz).
+__device__ __forceinline__ void slab(const float* b, const Ray& r,
+                                     float& tmin, float& tmax) {
+  float tx0 = (ld(b + 0) - r.ox) * r.ix;
+  float tx1 = (ld(b + 3) - r.ox) * r.ix;
+  float ty0 = (ld(b + 1) - r.oy) * r.iy;
+  float ty1 = (ld(b + 4) - r.oy) * r.iy;
+  float tz0 = (ld(b + 2) - r.oz) * r.iz;
+  float tz1 = (ld(b + 5) - r.oz) * r.iz;
+  tmin = jmax(jmax(jmin(tx0, tx1), jmin(ty0, ty1)), jmin(tz0, tz1));
+  tmax = jmin(jmin(jmax(tx0, tx1), jmax(ty0, ty1)), jmax(tz0, tz1));
+}
+
+// _pre_sphere: strict D > 0, inner hits only; no box gate (a sphere lies
+// inside every box its row carries).
+__device__ __forceinline__ bool pre_sphere(const float* p, const Ray& r,
+                                           float& t) {
+  float ocx = r.ox - ld(p + 1);
+  float ocy = r.oy - ld(p + 2);
+  float ocz = r.oz - ld(p + 3);
+  float rad = ld(p + 4);
+  float bb = 2.0f * (r.dx * ocx + r.dy * ocy + r.dz * ocz);
+  float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  float disc = bb * bb - 4.0f * r.aa * cc;
+  float sq = sqrtf(disc > 0.0f ? disc : 1.0f);
+  t = (-bb - sq) / (2.0f * r.aa);
+  return (disc > 0.0f) && (t > 0.0f);
+}
+
+// _pre_planewall + _leafbox_gate: back-face n.d > 0 convention, wall
+// containment, degenerate basis -> infinite plane, reference leaf box.
+__device__ __forceinline__ bool pre_planewall(const float* p, const Ray& r,
+                                              float& t) {
+  float nx = ld(p + 5), ny = ld(p + 6), nz = ld(p + 7);
+  float d_n = r.dx * nx + r.dy * ny + r.dz * nz;
+  float o_n = r.ox * nx + r.oy * ny + r.oz * nz;
+  t = -(ld(p + 8) + o_n) / (d_n == 0.0f ? 1.0f : d_n);
+  bool v_pl = (d_n > 0.0f) && (t > 0.0f);
+  float tw = v_pl ? t : 0.0f;
+  float hx = r.ox + tw * r.dx;
+  float hy = r.oy + tw * r.dy;
+  float hz = r.oz + tw * r.dz;
+  float u = hx * ld(p + 9) + hy * ld(p + 10) + hz * ld(p + 11) - ld(p + 18);
+  float v = hx * ld(p + 12) + hy * ld(p + 13) + hz * ld(p + 14) - ld(p + 19);
+  bool outside = (u < 0.0f) || (u > ld(p + 20)) || (v < 0.0f) ||
+                 (v > ld(p + 21));
+  float tmin, tmax;
+  slab(p + G_B0X, r, tmin, tmax);
+  bool gate = (tmax >= tmin) && (tmax > 0.0f);
+  return v_pl && ((ld(p + 23) > 0.0f) || !outside) && gate;
+}
+
+// _tri_test: raw barycentric, Gram-fused barycentric or Moller-Trumbore.
+template <int TRI>
+__device__ __forceinline__ bool tri_test(const float* p, const Ray& r,
+                                         float& t) {
+  if (TRI == TRI_MT) {
+    float e1x = ld(p + T_E1X), e1y = ld(p + T_E1X + 1), e1z = ld(p + T_E1X + 2);
+    float e2x = ld(p + T_E2X), e2y = ld(p + T_E2X + 1), e2z = ld(p + T_E2X + 2);
+    float hcx = r.dy * e2z - r.dz * e2y;
+    float hcy = r.dz * e2x - r.dx * e2z;
+    float hcz = r.dx * e2y - r.dy * e2x;
+    float a = e1x * hcx + e1y * hcy + e1z * hcz;
+    bool ok = fabsf(a) >= 1e-5f;
+    float f = 1.0f / (ok ? a : 1.0f);
+    float smx = r.ox - ld(p + T_P1X);
+    float smy = r.oy - ld(p + T_P1X + 1);
+    float smz = r.oz - ld(p + T_P1X + 2);
+    float u = f * (smx * hcx + smy * hcy + smz * hcz);
+    ok = ok && (u >= 0.0f) && (u <= 1.0f);
+    float qx = smy * e1z - smz * e1y;
+    float qy = smz * e1x - smx * e1z;
+    float qz = smx * e1y - smy * e1x;
+    float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
+    ok = ok && (v >= 0.0f) && (u + v <= 1.0f);
+    t = f * (e2x * qx + e2y * qy + e2z * qz);
+    return ok && (t > 0.0f);
+  }
+  float nx = ld(p + T_NX), ny = ld(p + T_NX + 1), nz = ld(p + T_NX + 2);
+  float d_n = r.dx * nx + r.dy * ny + r.dz * nz;
+  float o_n = r.ox * nx + r.oy * ny + r.oz * nz;
+  t = -(ld(p + T_PD) + o_n) / (d_n == 0.0f ? 1.0f : d_n);
+  bool inner = (d_n > 0.0f) && (t > 0.0f);
+  if (TRI == TRI_GRAM) {
+    float evx = ld(p + T_EVX), evy = ld(p + T_EVX + 1), evz = ld(p + T_EVX + 2);
+    float ewx = ld(p + T_EWX), ewy = ld(p + T_EWX + 1), ewz = ld(p + T_EWX + 2);
+    float d_ev = r.dx * evx + r.dy * evy + r.dz * evz;
+    float o_ev = r.ox * evx + r.oy * evy + r.oz * evz - ld(p + T_CV);
+    float v = o_ev + t * d_ev;
+    float d_ew = r.dx * ewx + r.dy * ewy + r.dz * ewz;
+    float o_ew = r.ox * ewx + r.oy * ewy + r.oz * ewz - ld(p + T_CW);
+    float w = o_ew + t * d_ew;
+    return inner && (v >= 0.0f) && (w >= 0.0f) && ((v + w) <= 1.0f);
+  }
+  float tw = inner ? t : 0.0f;
+  float hx = r.ox + tw * r.dx;
+  float hy = r.oy + tw * r.dy;
+  float hz = r.oz + tw * r.dz;
+  float d20 = hx * ld(p + T_E1X) + hy * ld(p + T_E1X + 1) +
+              hz * ld(p + T_E1X + 2) - ld(p + T_S0);
+  float d21 = hx * ld(p + T_E2X) + hy * ld(p + T_E2X + 1) +
+              hz * ld(p + T_E2X + 2) - ld(p + T_S1);
+  float v = ld(p + T_R11) * d20 - ld(p + T_R01) * d21;
+  float w = ld(p + T_R00) * d21 - ld(p + T_R01) * d20;
+  float u = 1.0f - v - w;
+  return inner && !((u < 0.0f) || (v < 0.0f) || (w < 0.0f));
+}
+
+// _closest_pass for one ray: the pre-pass over the n_other rows (the
+// earliest row wins exact ties), then the skip-pointer walk over the
+// triangle tree (probe tmin <= t_best, update on strict t < t_best).
+// t_init = limit makes it the shadow walk: in_shadow = t < limit.
+// pre_col / tri_col pick the id column (G_GID/T_GID, or the canonical
+// resolve id G_RID/T_RID).
+template <int TRI, bool NORMALS>
+__device__ Hit closest_walk(const Tables& s, int pre_col, int tri_col,
+                            const Ray& r, float t_init, Counts& c) {
+  Hit h;
+  h.t = t_init; h.id = -1.0f; h.nx = 0.0f; h.ny = 0.0f; h.nz = 0.0f;
+  if (!(r.ox < 1e30f)) return h;   // parked lane: the miss result
+
+  float best = INF;
+  int bi = -1;
+  for (int i = 0; i < s.n_other; ++i) {
+    const float* p = s.pre + i * PRE_W;
+    float t;
+    bool inner = i < s.n_sph ? pre_sphere(p, r, t) : pre_planewall(p, r, t);
+    float cand = inner ? t : INF;
+    if (cand < best) { best = cand; bi = i; }
+  }
+  c.pre += s.n_other;
+  if (best < h.t) {
+    const float* p = s.pre + bi * PRE_W;
+    h.t = best;
+    h.id = ld(p + pre_col);
+    if (NORMALS) {
+      if (bi < s.n_sph) {
+        float px = r.ox + best * r.dx - ld(p + 1);
+        float py = r.oy + best * r.dy - ld(p + 2);
+        float pz = r.oz + best * r.dz - ld(p + 3);
+        float inv = 1.0f / sqrtf(px * px + py * py + pz * pz + 1e-30f);
+        h.nx = px * inv; h.ny = py * inv; h.nz = pz * inv;
+      } else {
+        h.nx = ld(p + 5); h.ny = ld(p + 6); h.nz = ld(p + 7);
+      }
+    }
+  }
+
+  int ptr = 0;
+  while (ptr < s.m) {
+    float tmin, tmax;
+    slab(s.nodes + ptr * NODE_W, r, tmin, tmax);
+    c.node += 1;
+    bool probe = (tmax >= tmin) && (tmax > 0.0f) && (tmin <= h.t);
+    int cnt = ldi(s.leaf_count + ptr);
+    if (probe && cnt > 0) {
+      const float* p = s.tri + ldi(s.leaf_start + ptr) * TRI_W;
+      for (int j = 0; j < cnt; ++j, p += TRI_W) {
+        float t;
+        bool inner = tri_test<TRI>(p, r, t);
+        if (inner && t < h.t) {
+          h.t = t;
+          h.id = ld(p + tri_col);
+          if (NORMALS) {
+            h.nx = ld(p + T_NX); h.ny = ld(p + T_NX + 1); h.nz = ld(p + T_NX + 2);
+          }
+        }
+      }
+      c.tri += cnt;
+      ptr = ldi(s.skip + ptr);
+    } else if (probe) {
+      ptr += 1;
+    } else {
+      ptr = ldi(s.skip + ptr);
+    }
+  }
+  return h;
+}
+
+// _split_body's occlusion mode for one ray: occluded iff some inner hit
+// has t < limit. Subtrees whose entry lies beyond the limit are skipped.
+template <int TRI>
+__device__ bool occluded(const Tables& s, const Ray& r, float limit,
+                         Counts& c) {
+  if (!(r.ox < 1e30f)) return false;
+  for (int i = 0; i < s.n_other; ++i) {
+    const float* p = s.pre + i * PRE_W;
+    float t;
+    bool inner = i < s.n_sph ? pre_sphere(p, r, t) : pre_planewall(p, r, t);
+    c.pre += 1;
+    if (inner && t < limit) return true;
+  }
+  int ptr = 0;
+  while (ptr < s.m) {
+    float tmin, tmax;
+    slab(s.nodes + ptr * NODE_W, r, tmin, tmax);
+    c.node += 1;
+    bool probe = (tmax >= tmin) && (tmax > 0.0f) && (tmin <= limit);
+    int cnt = ldi(s.leaf_count + ptr);
+    if (probe && cnt > 0) {
+      const float* p = s.tri + ldi(s.leaf_start + ptr) * TRI_W;
+      for (int j = 0; j < cnt; ++j, p += TRI_W) {
+        float t;
+        bool inner = tri_test<TRI>(p, r, t);
+        c.tri += 1;
+        if (inner && t < limit) return true;
+      }
+      ptr = ldi(s.skip + ptr);
+    } else if (probe) {
+      ptr += 1;
+    } else {
+      ptr = ldi(s.skip + ptr);
+    }
+  }
+  return false;
+}
+
+// Camera and light scalars of the frame (the JAX kernel's par row):
+// light pos(3) + color(3), camera pos/front/right/up (12), half_w, half_h,
+// pixel-row offset of the window.
+struct Params {
+  float lx, ly, lz, lcr, lcg, lcb;
+  float cpx, cpy, cpz, fx, fy, fz, rx, ry, rz, ux, uy, uz;
+  float half_w, half_h, y_off;
+};
+
+__device__ __forceinline__ Params load_params(const float* par) {
+  Params q;
+  q.lx = ld(par + 0); q.ly = ld(par + 1); q.lz = ld(par + 2);
+  q.lcr = ld(par + 3); q.lcg = ld(par + 4); q.lcb = ld(par + 5);
+  q.cpx = ld(par + 6); q.cpy = ld(par + 7); q.cpz = ld(par + 8);
+  q.fx = ld(par + 9); q.fy = ld(par + 10); q.fz = ld(par + 11);
+  q.rx = ld(par + 12); q.ry = ld(par + 13); q.rz = ld(par + 14);
+  q.ux = ld(par + 15); q.uy = ld(par + 16); q.uz = ld(par + 17);
+  q.half_w = ld(par + 18); q.half_h = ld(par + 19); q.y_off = ld(par + 20);
+  return q;
+}
+
+struct Shade {
+  int bounces;
+  float shadow_eps, reflect_eps;
+  bool use_fresnel, enable_shadows;
+};
+
+// One pixel's whole Whitted trace (_wholeframe_kernel in raygen mode):
+// raygen and background from the pixel index, then per bounce a closest
+// walk with normals, a shadow walk, the material gather attr_tab[rid],
+// Phong with 1/d attenuation and x0.3 shadows, and the reflection.
+template <int TRI>
+__device__ void trace_pixel(const Tables& s, const float* tab,
+                            const Params& q, const Shade& sh, int x, int y,
+                            int W, int H, Counts& c, float* rgb) {
+  float xi = (float)x;
+  float yi = (float)y + q.y_off;
+  float ndc_x = 2.0f * xi / (float)W - 1.0f;
+  float ndc_y = 1.0f - 2.0f * yi / (float)H;
+  float vx = (q.cpx + q.fx + ndc_x * q.half_w * q.rx + ndc_y * q.half_h * q.ux) - q.cpx;
+  float vy = (q.cpy + q.fy + ndc_x * q.half_w * q.ry + ndc_y * q.half_h * q.uy) - q.cpy;
+  float vz = (q.cpz + q.fz + ndc_x * q.half_w * q.rz + ndc_y * q.half_h * q.uz) - q.cpz;
+  float nrm = sqrtf(vx * vx + vy * vy + vz * vz);
+  float ox = q.cpx, oy = q.cpy, oz = q.cpz;
+  float dx = vx / nrm, dy = vy / nrm, dz = vz / nrm;
+  float f_bg = yi / (float)H;
+  float bgr = BG_DARK_R + BG_SPAN_R * f_bg;
+  float bgg = BG_DARK_G + BG_SPAN_G * f_bg;
+  float bgb = BG_DARK_B + BG_SPAN_B * f_bg;
+
+  float accr = 0.0f, accg = 0.0f, accb = 0.0f;
+  float atr = 1.0f, atg = 1.0f, atb = 1.0f;
+  for (int b = 0; b < sh.bounces; ++b) {
+    Ray ray = make_ray(ox, oy, oz, dx, dy, dz);
+    Hit h = closest_walk<TRI, true>(s, G_RID, T_RID, ray, INF, c);
+    if (!(h.t < INF)) {   // miss: background, and the ray ends
+      accr = accr + atr * bgr;
+      accg = accg + atg * bgg;
+      accb = accb + atb * bgb;
+      break;
+    }
+    float px = ox + h.t * dx;
+    float py = oy + h.t * dy;
+    float pz = oz + h.t * dz;
+    float ldx = q.lx - px;
+    float ldy = q.ly - py;
+    float ldz = q.lz - pz;
+    float dist = sqrtf(ldx * ldx + ldy * ldy + ldz * ldz);
+    bool in_shadow = false;
+    if (sh.enable_shadows) {
+      float inv = 1.0f / jmax(dist, 1e-30f);
+      Ray sray = make_ray(px + h.nx * sh.shadow_eps, py + h.ny * sh.shadow_eps,
+                          pz + h.nz * sh.shadow_eps, ldx * inv, ldy * inv,
+                          ldz * inv);
+      Hit sh_hit = closest_walk<TRI, false>(s, G_RID, T_RID, sray, dist, c);
+      in_shadow = sh_hit.t < dist;
+    }
+
+    const float* mat = tab + (int)h.id * ATTR_W;
+    float mcr = ld(mat + 3), mcg = ld(mat + 4), mcb = ld(mat + 5);
+    float ka = ld(mat + 6), kd = ld(mat + 7), ks = ld(mat + 8);
+    float kf = ld(mat + 9), shin = ld(mat + 10);
+
+    float dist_p = sqrtf(jmax(ldx * ldx + ldy * ldy + ldz * ldz, 1e-30f));
+    float lc_r = q.lcr / dist_p;
+    float lc_g = q.lcg / dist_p;
+    float lc_b = q.lcb / dist_p;
+    float ldnx = ldx / dist_p;
+    float ldny = ldy / dist_p;
+    float ldnz = ldz / dist_p;
+    float diff = jmax(h.nx * ldnx + h.ny * ldny + h.nz * ldnz, 0.0f);
+    float dotln = h.nx * ldnx + h.ny * ldny + h.nz * ldnz;
+    float rdx = -ldnx + 2.0f * dotln * h.nx;
+    float rdy = -ldny + 2.0f * dotln * h.ny;
+    float rdz = -ldnz + 2.0f * dotln * h.nz;
+    float spec_cos = jmax(dx * rdx + dy * rdy + dz * rdz, 0.0f);
+    float spec = powf(spec_cos, shin);
+    float specc = diff > 0.0f ? ks * spec : 0.0f;
+    float col_r = (ka * lc_r + (kd * diff) * lc_r + specc * lc_r) * mcr;
+    float col_g = (ka * lc_g + (kd * diff) * lc_g + specc * lc_g) * mcg;
+    float col_b = (ka * lc_b + (kd * diff) * lc_b + specc * lc_b) * mcb;
+    if (in_shadow) {
+      col_r = col_r * SHADOW_FACTOR;
+      col_g = col_g * SHADOW_FACTOR;
+      col_b = col_b * SHADOW_FACTOR;
+    }
+    accr = accr + atr * col_r;
+    accg = accg + atg * col_g;
+    accb = accb + atb * col_b;
+
+    if (!(ks > 0.0f)) break;   // no reflection: the ray ends
+    float dotdn = h.nx * dx + h.ny * dy + h.nz * dz;
+    float ndx = dx - 2.0f * dotdn * h.nx;
+    float ndy = dy - 2.0f * dotdn * h.ny;
+    float ndz = dz - 2.0f * dotdn * h.nz;
+    if (sh.use_fresnel) {
+      float cosr = jmax(-(ndx * h.nx + ndy * h.ny + ndz * h.nz), 0.0f);
+      float x1 = 1.0f - cosr;
+      float x2 = x1 * x1;
+      float x5 = x1 * (x2 * x2);   // lax.integer_pow(x, 5)
+      float f = jmin(jmax(x5, 0.0f), 0.8f);
+      float w = kf * f;
+      float natr = atr * (mcr + (1.0f - mcr) * w);
+      float natg = atg * (mcg + (1.0f - mcg) * w);
+      float natb = atb * (mcb + (1.0f - mcb) * w);
+      // the extra term is NOT attenuated (reference double-count)
+      accr = accr + (1.0f - w) * mcr * col_r;
+      accg = accg + (1.0f - w) * mcg * col_g;
+      accb = accb + (1.0f - w) * mcb * col_b;
+      atr = natr; atg = natg; atb = natb;
+    } else {
+      atr = atr * ks; atg = atg * ks; atb = atb * ks;
+    }
+    ox = px + h.nx * sh.reflect_eps;
+    oy = py + h.ny * sh.reflect_eps;
+    oz = pz + h.nz * sh.reflect_eps;
+    dx = ndx; dy = ndy; dz = ndz;
+  }
+  rgb[0] = accr;
+  rgb[1] = accg;
+  rgb[2] = accb;
+}
+
+}  // namespace rt

@@ -1,0 +1,403 @@
+"""The split-phase closest-hit query and the production ``render()`` (port
+of ``raytracer_tpu/render/pallas_split.py``).
+
+Why the split is exact: a shape CONTAINED in its BVH leaf box (spheres,
+triangles, finite walls) renders identically under any acceleration
+structure, so triangles run a lean walk over a triangle-only tree whose
+shape is a pure performance choice, and the few non-triangles are tested
+brute force per ray, with the reference tree's leaf box as the gate of
+the plane family (the infinite floor wall is visible only inside it).
+
+``closest_hit`` is the wrapper of the CUDA kernel ``closest_hit_kernel``
+(csrc/raytrace.cu), which replaces the TPU kernel ``_split_kernel`` /
+``_split_body`` (pallas_split.py:961-964, 343-651). On a CPU tensor it
+runs ``closest_hit_plain``, the same function in PyTorch tensor ops.
+``closest_pass_plain`` is the plain version of the per-ray walk both CUDA
+kernels share (``_closest_pass``, pallas_split.py:654-902).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from raytracer_tpu_torch.config import TRI_GRAM, TRI_MT, RenderConfig
+from raytracer_tpu_torch.device import resolve_device
+from raytracer_tpu_torch.geom.direct import INF, sqrt_rn
+from raytracer_tpu_torch.render import kernels
+from raytracer_tpu_torch.render.split_scene import (
+    G_B0X, G_GID, G_RID, T_CV, T_CW, T_E1X, T_E2X, T_EVX, T_EWX, T_GID,
+    T_NX, T_P1X, T_PD, T_R00, T_R01, T_R11, T_RID, T_S0, T_S1, SplitScene,
+    prepare)
+
+# Rays per pass of the plain walk: bounds its (rays x leaf size) temporaries.
+PLAIN_CHUNK = 32768
+
+
+class Rays(NamedTuple):
+    """Ray components, each (R,) f32, with 1/d and d.d precomputed as the
+    kernels do at the start of a walk."""
+    ox: torch.Tensor
+    oy: torch.Tensor
+    oz: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    dz: torch.Tensor
+    ix: torch.Tensor
+    iy: torch.Tensor
+    iz: torch.Tensor
+    aa: torch.Tensor
+
+    @staticmethod
+    def make(ox, oy, oz, dx, dy, dz) -> "Rays":
+        return Rays(ox, oy, oz, dx, dy, dz, 1.0 / dx, 1.0 / dy, 1.0 / dz,
+                    dx * dx + dy * dy + dz * dz)
+
+    def take(self, idx) -> "Rays":
+        return Rays(*(x[idx] for x in self))
+
+    def col(self) -> "Rays":
+        """(R, 1) views, to broadcast against (1, C) table columns."""
+        return Rays(*(x[:, None] for x in self))
+
+
+def _slab(b, r: Rays):
+    """Slab test against boxes b[..., 0:6] (min xyz, max xyz); NaN-
+    propagating min/max like the kernels."""
+    tx0 = (b[..., 0] - r.ox) * r.ix
+    tx1 = (b[..., 3] - r.ox) * r.ix
+    ty0 = (b[..., 1] - r.oy) * r.iy
+    ty1 = (b[..., 4] - r.oy) * r.iy
+    tz0 = (b[..., 2] - r.oz) * r.iz
+    tz1 = (b[..., 5] - r.oz) * r.iz
+    tmin = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
+                                       torch.minimum(ty0, ty1)),
+                         torch.minimum(tz0, tz1))
+    tmax = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
+                                       torch.maximum(ty0, ty1)),
+                         torch.maximum(tz0, tz1))
+    return tmin, tmax
+
+
+def _pre_sphere(p, r: Rays):
+    """p: (1, C, PRE_W) sphere rows; r: (L, 1) rays -> t, inner (L, C)."""
+    ocx = r.ox - p[..., 1]
+    ocy = r.oy - p[..., 2]
+    ocz = r.oz - p[..., 3]
+    rad = p[..., 4]
+    bb = 2.0 * (r.dx * ocx + r.dy * ocy + r.dz * ocz)
+    cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
+    disc = bb * bb - 4.0 * r.aa * cc
+    sq = sqrt_rn(torch.where(disc > 0, disc, 1.0))
+    t = (-bb - sq) / (2.0 * r.aa)
+    return t, (disc > 0) & (t > 0)
+
+
+def _pre_planewall(p, r: Rays):
+    """p: (1, C, PRE_W) plane/wall rows -> t, inner (L, C); includes the
+    reference leaf-box gate."""
+    nx, ny, nz = p[..., 5], p[..., 6], p[..., 7]
+    d_n = r.dx * nx + r.dy * ny + r.dz * nz
+    o_n = r.ox * nx + r.oy * ny + r.oz * nz
+    t = -(p[..., 8] + o_n) / torch.where(d_n == 0, 1.0, d_n)
+    v_pl = (d_n > 0) & (t > 0)
+    tw = torch.where(v_pl, t, 0.0)
+    hx = r.ox + tw * r.dx
+    hy = r.oy + tw * r.dy
+    hz = r.oz + tw * r.dz
+    u = hx * p[..., 9] + hy * p[..., 10] + hz * p[..., 11] - p[..., 18]
+    v = hx * p[..., 12] + hy * p[..., 13] + hz * p[..., 14] - p[..., 19]
+    outside = (u < 0) | (u > p[..., 20]) | (v < 0) | (v > p[..., 21])
+    tmin, tmax = _slab(p[..., G_B0X:G_B0X + 6], r)
+    gate = (tmax >= tmin) & (tmax > 0)
+    return t, v_pl & ((p[..., 23] > 0) | ~outside) & gate
+
+
+def _tri_test(p, r: Rays, tri_mode: int):
+    """p: (1, C, TRI_W) triangle rows -> t, inner (L, C)."""
+    if tri_mode == TRI_MT:
+        e1x, e1y, e1z = p[..., T_E1X], p[..., T_E1X + 1], p[..., T_E1X + 2]
+        e2x, e2y, e2z = p[..., T_E2X], p[..., T_E2X + 1], p[..., T_E2X + 2]
+        hcx = r.dy * e2z - r.dz * e2y
+        hcy = r.dz * e2x - r.dx * e2z
+        hcz = r.dx * e2y - r.dy * e2x
+        a = e1x * hcx + e1y * hcy + e1z * hcz
+        ok = torch.abs(a) >= 1e-5
+        f = 1.0 / torch.where(ok, a, 1.0)
+        smx = r.ox - p[..., T_P1X]
+        smy = r.oy - p[..., T_P1X + 1]
+        smz = r.oz - p[..., T_P1X + 2]
+        u = f * (smx * hcx + smy * hcy + smz * hcz)
+        ok = ok & (u >= 0) & (u <= 1)
+        qx = smy * e1z - smz * e1y
+        qy = smz * e1x - smx * e1z
+        qz = smx * e1y - smy * e1x
+        v = f * (r.dx * qx + r.dy * qy + r.dz * qz)
+        ok = ok & (v >= 0) & (u + v <= 1)
+        t = f * (e2x * qx + e2y * qy + e2z * qz)
+        return t, ok & (t > 0)
+    nx, ny, nz = p[..., T_NX], p[..., T_NX + 1], p[..., T_NX + 2]
+    d_n = r.dx * nx + r.dy * ny + r.dz * nz
+    o_n = r.ox * nx + r.oy * ny + r.oz * nz
+    t = -(p[..., T_PD] + o_n) / torch.where(d_n == 0, 1.0, d_n)
+    inner = (d_n > 0) & (t > 0)
+    if tri_mode == TRI_GRAM:
+        evx, evy, evz = p[..., T_EVX], p[..., T_EVX + 1], p[..., T_EVX + 2]
+        ewx, ewy, ewz = p[..., T_EWX], p[..., T_EWX + 1], p[..., T_EWX + 2]
+        d_ev = r.dx * evx + r.dy * evy + r.dz * evz
+        o_ev = r.ox * evx + r.oy * evy + r.oz * evz - p[..., T_CV]
+        v = o_ev + t * d_ev
+        d_ew = r.dx * ewx + r.dy * ewy + r.dz * ewz
+        o_ew = r.ox * ewx + r.oy * ewy + r.oz * ewz - p[..., T_CW]
+        w = o_ew + t * d_ew
+        return t, inner & (v >= 0) & (w >= 0) & ((v + w) <= 1.0)
+    tw = torch.where(inner, t, 0.0)
+    hx = r.ox + tw * r.dx
+    hy = r.oy + tw * r.dy
+    hz = r.oz + tw * r.dz
+    d20 = (hx * p[..., T_E1X] + hy * p[..., T_E1X + 1]
+           + hz * p[..., T_E1X + 2] - p[..., T_S0])
+    d21 = (hx * p[..., T_E2X] + hy * p[..., T_E2X + 1]
+           + hz * p[..., T_E2X + 2] - p[..., T_S1])
+    v = p[..., T_R11] * d20 - p[..., T_R01] * d21
+    w = p[..., T_R00] * d21 - p[..., T_R01] * d20
+    u = 1.0 - v - w
+    return t, inner & ~((u < 0) | (v < 0) | (w < 0))
+
+
+def _pre_tests(split: SplitScene, r: Rays):
+    """All n_other pre-pass tests, (L, n_other) t and inner, rows in
+    table order (spheres first)."""
+    pre = split.pre_rows[None, :split.n_other]
+    rc = r.col()
+    parts = []
+    if split.n_sph:
+        parts.append(_pre_sphere(pre[:, :split.n_sph], rc))
+    if split.n_other > split.n_sph:
+        parts.append(_pre_planewall(pre[:, split.n_sph:], rc))
+    return (torch.cat([p[0] for p in parts], 1),
+            torch.cat([p[1] for p in parts], 1))
+
+
+def _tree(split: SplitScene):
+    """Host copies of the skip-pointer tree (m is small)."""
+    m = split.m
+    return (split.leaf_start[:m].tolist(), split.leaf_count[:m].tolist(),
+            split.skip[:m].tolist())
+
+
+def _walk_closest(split, r: Rays, t, gid, nrm, tri_mode, tri_col):
+    """The skip-pointer walk for every ray at once. Rays walk the nodes in
+    DFS order, so visiting node n = 0..m-1 once, each with the rays whose
+    pointer is n, replays every ray's own walk. Within a leaf, the first
+    minimum of the candidates against a strict t < t_best equals the
+    kernels' sequential strict-< fold."""
+    starts, counts, skips = _tree(split)
+    nxt = torch.zeros_like(t, dtype=torch.int64)
+    for n in range(split.m):
+        sel = torch.nonzero(nxt == n).squeeze(1)
+        if sel.numel() == 0:
+            continue
+        rs = r.take(sel)
+        tmin, tmax = _slab(split.nodes[n], rs)
+        probe = (tmax >= tmin) & (tmax > 0) & (tmin <= t[sel])
+        if counts[n] > 0:
+            hit_sel = sel[probe]
+            if hit_sel.numel():
+                rows = split.tri_rows[starts[n]:starts[n] + counts[n]]
+                tt, inner = _tri_test(rows[None], r.take(hit_sel).col(),
+                                      tri_mode)
+                cand = torch.where(inner, tt, INF)
+                j = torch.argmin(cand, dim=1)
+                cmin = cand.gather(1, j[:, None]).squeeze(1)
+                better = cmin < t[hit_sel]
+                upd = hit_sel[better]
+                row = rows[j[better]]
+                t[upd] = cmin[better]
+                gid[upd] = row[:, tri_col]
+                if nrm is not None:
+                    nrm[upd] = row[:, T_NX:T_NX + 3]
+            nxt[sel] = skips[n]
+        else:
+            nxt[sel] = torch.where(probe, n + 1, skips[n])
+
+
+def closest_pass_plain(split: SplitScene, o, d, *, tri_mode: int,
+                       rid: bool = False, with_normals: bool = False,
+                       t_init: Optional[torch.Tensor] = None):
+    """Plain version of the per-ray walk (``_closest_pass``): o, d are
+    tuples of three (R,) tensors. Returns (t, id, normal (R, 3)) with id
+    a float shape id (the canonical resolve id with ``rid``), -1 on miss.
+    ``t_init`` (default INF) turns it into the shadow walk."""
+    ox, oy, oz = o
+    t = torch.full_like(ox, INF) if t_init is None else t_init.clone()
+    gid = torch.full_like(ox, -1.0)
+    nrm = torch.zeros(ox.shape + (3,), dtype=ox.dtype, device=ox.device)
+    live = torch.nonzero(ox < 1e30).squeeze(1)   # parked lanes miss
+    for c0 in range(0, live.numel(), PLAIN_CHUNK):
+        idx = live[c0:c0 + PLAIN_CHUNK]
+        r = Rays.make(*(x[idx] for x in (*o, *d)))
+        tc, gc, nc = t[idx], gid[idx], nrm[idx]
+        if split.n_other:
+            tp, inner = _pre_tests(split, r)
+            cand = torch.where(inner, tp, INF)
+            bi = torch.argmin(cand, dim=1)
+            best = cand.gather(1, bi[:, None]).squeeze(1)
+            better = best < tc
+            rows = split.pre_rows[bi]
+            gc = torch.where(better, rows[:, G_RID if rid else G_GID], gc)
+            if with_normals:
+                px = r.ox + best * r.dx - rows[:, 1]
+                py = r.oy + best * r.dy - rows[:, 2]
+                pz = r.oz + best * r.dz - rows[:, 3]
+                inv = 1.0 / sqrt_rn(px * px + py * py + pz * pz + 1e-30)
+                sph = torch.stack([px * inv, py * inv, pz * inv], 1)
+                n_pre = torch.where((bi < split.n_sph)[:, None], sph,
+                                    rows[:, 5:8])
+                nc = torch.where(better[:, None], n_pre, nc)
+            tc = torch.where(better, best, tc)
+        _walk_closest(split, r, tc, gc, nc if with_normals else None,
+                      tri_mode, T_RID if rid else T_GID)
+        t[idx], gid[idx], nrm[idx] = tc, gc, nc
+    return t, gid, nrm
+
+
+def occluded_plain(split: SplitScene, o, d, limit, *, tri_mode: int):
+    """Plain version of the occlusion query (``_split_body`` occlusion
+    mode): True where some inner hit has t < limit."""
+    ox = o[0]
+    occ = torch.zeros_like(ox, dtype=torch.bool)
+    live = torch.nonzero(ox < 1e30).squeeze(1)
+    starts, counts, skips = _tree(split)
+    for c0 in range(0, live.numel(), PLAIN_CHUNK):
+        idx = live[c0:c0 + PLAIN_CHUNK]
+        r = Rays.make(*(x[idx] for x in (*o, *d)))
+        lim = limit[idx]
+        oc = torch.zeros_like(lim, dtype=torch.bool)
+        if split.n_other:
+            tp, inner = _pre_tests(split, r)
+            oc = (inner & (tp < lim[:, None])).any(1)
+        nxt = torch.where(oc, split.m, 0)
+        for n in range(split.m):
+            sel = torch.nonzero(nxt == n).squeeze(1)
+            if sel.numel() == 0:
+                continue
+            rs = r.take(sel)
+            tmin, tmax = _slab(split.nodes[n], rs)
+            probe = (tmax >= tmin) & (tmax > 0) & (tmin <= lim[sel])
+            if counts[n] > 0:
+                hit_sel = sel[probe]
+                if hit_sel.numel():
+                    rows = split.tri_rows[starts[n]:starts[n] + counts[n]]
+                    tt, inner = _tri_test(rows[None],
+                                          r.take(hit_sel).col(), tri_mode)
+                    oc[hit_sel] = (inner & (tt < lim[hit_sel, None])).any(1)
+                nxt[sel] = torch.where(oc[sel], split.m, skips[n])
+            else:
+                nxt[sel] = torch.where(probe, n + 1, skips[n])
+        occ[idx] = oc
+    return occ
+
+
+def closest_hit_plain(split: SplitScene, o: torch.Tensor, d: torch.Tensor,
+                      tri_mode: int, max_t: Optional[torch.Tensor] = None):
+    """Plain version of ``closest_hit_kernel``: o, d (R, 3) f32. Closest
+    mode returns (t, gid int32, -1 on miss); occlusion mode (``max_t``
+    given) returns t = 0 where occluded, else INF, and gid = -1."""
+    oc = (o[:, 0], o[:, 1], o[:, 2])
+    dc = (d[:, 0], d[:, 1], d[:, 2])
+    if max_t is not None:
+        occ = occluded_plain(split, oc, dc, max_t, tri_mode=tri_mode)
+        t = torch.where(occ, 0.0, INF).to(torch.float32)
+        return t, torch.full_like(t, -1, dtype=torch.int32)
+    t, gid, _ = closest_pass_plain(split, oc, dc, tri_mode=tri_mode)
+    return t, gid.to(torch.int32)
+
+
+def closest_hit(split: SplitScene, o: torch.Tensor, d: torch.Tensor,
+                tri_mode: int, max_t: Optional[torch.Tensor] = None,
+                stats: Optional[torch.Tensor] = None):
+    """Closest hit (or occlusion, with ``max_t``) of R rays o, d (R, 3) f32.
+
+    On a CUDA tensor this launches ``closest_hit_kernel`` on the current
+    stream; on a CPU tensor it runs ``closest_hit_plain``. ``stats``, an
+    int64 (3,) tensor on the card, receives the counts of pre-pass, node
+    and triangle tests."""
+    dev = o.device
+    if dev.type == "cpu":
+        return closest_hit_plain(split, o, d, tri_mode, max_t)
+    if dev.type != "cuda":
+        raise ValueError(f"closest_hit: unsupported device {dev}")
+    n = o.shape[0]
+    kernels.check_tensor("o", o, torch.float32, dev, (None, 3))
+    kernels.check_tensor("d", d, torch.float32, dev, (n, 3))
+    if max_t is not None:
+        kernels.check_tensor("max_t", max_t, torch.float32, dev, (n,))
+    if stats is not None:
+        kernels.check_tensor("stats", stats, torch.int64, dev, (3,))
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    gid = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return t, gid
+    args = kernels.table_args(split, dev)
+    status = kernels.library().rt_closest_hit(
+        *args, o.data_ptr(), d.data_ptr(),
+        None if max_t is None else max_t.data_ptr(), n, t.data_ptr(),
+        gid.data_ptr(), int(max_t is not None), tri_mode,
+        None if stats is None else stats.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check_status("closest_hit_kernel", status)
+    closest_hit.launches += 1
+    return t, gid
+
+
+closest_hit.launches = 0
+
+
+def make_closest_hit(split: SplitScene, cfg: RenderConfig):
+    """closest_hit(o, d) -> (t, sid, hit) plus .occlusion(o, d, max_t),
+    as ``pallas_split.make_closest_hit``: o, d (R, 3) f32 on the split's
+    device; sid is the int32 shape id (0 on miss), hit = t < INF."""
+    tri_mode = cfg.tri_mode
+
+    def closest(o, d):
+        t, gid = closest_hit(split, o, d, tri_mode)
+        return t, gid.clamp_min(0), t < INF
+
+    def occlusion(o, d, max_t):
+        t, _ = closest_hit(split, o, d, tri_mode, max_t=max_t)
+        return t == 0.0
+
+    closest.occlusion = occlusion
+    return closest
+
+
+def _render_impl(scene, split: SplitScene, camera, light,
+                 cfg: RenderConfig) -> torch.Tensor:
+    """The routing of ``pallas_split._render_impl`` for the routes this
+    port has: the one-launch whole-frame route. (The kernels need no
+    power-of-two tiles, so the JAX package's fed-rays fallback has no
+    counterpart here.)"""
+    if cfg.sort_bounces:
+        raise NotImplementedError(
+            "sort_bounces=True (the sorted-continuation hybrid) is not "
+            "ported yet")
+    from raytracer_tpu_torch.render import wholeframe
+    return wholeframe._render_blocks(scene, split, camera, light, cfg)
+
+
+def render(scene, bvh, camera, light, cfg: RenderConfig,
+           split: Optional[SplitScene] = None,
+           differentiable: bool = False, device=None) -> torch.Tensor:
+    """Render (H, W, 3) f32 with the whole-frame kernel (one launch per
+    frame). ``bvh`` is the reference LinearBVH (exact leaf-box gates of
+    the plane family); pass a prebuilt ``split`` to skip host prep.
+    ``device`` None means "cuda"; "cpu" runs the plain versions."""
+    dev = resolve_device(device)
+    if differentiable:
+        raise NotImplementedError("differentiable rendering is not ported "
+                                  "yet")
+    if split is None:
+        split = prepare(scene, bvh, device=dev)
+    return _render_impl(scene.to(dev), split.to(dev), camera.to(dev),
+                        light.to(dev), cfg)
