@@ -4,14 +4,19 @@ card. Run from the repository root:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from csrc/ with nvcc, holds each kernel against
-its plain PyTorch version on the card, drives the main path (render() of
-scenes 1 and 2 at 800x600 with 3 bounces, and the closest-hit query on the
-frame's primary rays) with every launch counter set to 0 just before and
-read just after, times it with CUDA events, and prints one JSON line per
-kernel and, last, {"ok": true, "device": {...}}. Any failed check raises,
-so the script exits non-zero and prints no result. Without a CUDA device
-it exits non-zero at once.
+It builds the CUDA kernels from csrc/ with nvcc and holds each kernel
+(wholeframe_kernel in its raygen, emit and consume modes,
+closest_hit_kernel, fused_kernel, resolve_kernel) against its plain
+PyTorch version on the card. Then it drives the main paths at 800x600
+with 3 bounces, each with every launch counter set to 0 just before it and
+read just after: the one-launch frame of scenes 1 and 2 with the
+closest-hit and occlusion queries; the sorted-continuation hybrid
+(render(sort_bounces=True)) of scenes 1 and 2, and scene 2 with
+second_sort; the per-bounce route (wholeframe.USE_WHOLEFRAME off) of
+scenes 1 and 2. It times them with CUDA events and prints one JSON line
+of the kernels and, last, {"ok": true, "device": {...}}. Any failed check
+raises, so the script exits non-zero and prints no result. Without a CUDA
+device it exits non-zero at once.
 """
 
 import json
@@ -37,7 +42,22 @@ FRAME_W, FRAME_H, BOUNCES = 800, 600, 3
 CHECK_W, CHECK_H = 200, 150
 N_RAYS = 4096
 N_PIXELS = 4096
+N_FUSED = 8192
 TIMED_FRAMES = 20
+# The hybrid re-associates f32 sums only (the JAX package's bar,
+# tests/test_pallas_bvh.py:84-106).
+HYBRID_ATOL = 1e-6
+# The per-bounce route against the one-launch frame: pixels over 1e-4 at
+# most 0.5% of the frame. Both trace the same hits; the per-bounce route's
+# primary rays come from camera_rays (PyTorch's vector norm) where the
+# kernel's raygen rounds its own root, so a direction may move by an ulp,
+# which a grazing highlight (pow(., 32)) amplifies. On the CPU at 200x150
+# the plain versions differ on 0.12% of scene 2's pixels and 0.013% of
+# scene 1's.
+PER_BOUNCE_MAX_FRACTION = 0.005
+# Per-ray f32 operations of resolve_kernel (3 subtractions, |rel|^2 + eps,
+# sqrt, division, 3 blended normal components).
+OPS_RESOLVE = 25
 
 
 def log(msg):
@@ -63,8 +83,10 @@ def main() -> int:
     from raytracer_tpu_torch.render import kernels, split_scene, whitted
     from raytracer_tpu_torch.render import wholeframe as wf
     from raytracer_tpu_torch.render.split import (closest_hit,
-                                                  closest_hit_plain,
-                                                  make_closest_hit, render)
+                                                  closest_hit_plain, fused,
+                                                  fused_plain,
+                                                  make_closest_hit, render,
+                                                  resolve, resolve_plain)
     from raytracer_tpu_torch.scenes import generate_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -104,8 +126,11 @@ def main() -> int:
         scenes[which] = (sc, lin, split, whitted._attr_table(sc.flat))
     log(f"scenes 1, 2 prepared in {time.perf_counter() - t:.1f}s")
     gen = torch.Generator().manual_seed(1234)
-    err = {"wholeframe_kernel": 0.0, "closest_hit_kernel": 0.0}
-    held = {"wholeframe_kernel": [], "closest_hit_kernel": []}
+    names = ("wholeframe_kernel", "closest_hit_kernel", "fused_kernel",
+             "resolve_kernel")
+    err = {k: 0.0 for k in names}
+    held = {k: [] for k in names}
+    counters = dict(zip(names, (wf.wholeframe, closest_hit, fused, resolve)))
 
     # -- phase 3: closest_hit_kernel against closest_hit_plain ----------------
     t = time.perf_counter()
@@ -143,6 +168,70 @@ def main() -> int:
         "closest and occlusion, scenes 1 and 2")
     log(f"phase 3 done in {time.perf_counter() - t:.1f}s")
 
+    # -- phase 3b: fused_kernel against fused_plain ---------------------------
+    t = time.perf_counter()
+    shadow_eps = RenderConfig().shadow_eps
+    for which, (sc, _, split, _) in scenes.items():
+        half = N_FUSED // 2
+        o_r = torch.rand(half, 3, generator=gen) * 80 - 40
+        d_r = torch.randn(half, 3, generator=gen)
+        d_r = d_r / d_r.norm(dim=1, keepdim=True)
+        o_s, d_s = pixel_rays(cam_ops, sc.camera,
+                              torch.randint(0, FRAME_W * FRAME_H, (half,),
+                                            generator=gen).to(dev))
+        o = torch.cat([o_r.to(dev), o_s])
+        d = torch.cat([d_r.to(dev), d_s])
+        parked = (torch.rand(N_FUSED, generator=gen) < 0.1).to(dev)
+        o[parked] = whitted.PARK_ORIGIN
+        d[parked] = whitted._PARK_DIR
+        o, d = o.contiguous(), d.contiguous()
+        lp = sc.light.position.contiguous()
+        for mode in (1, 0, 2):
+            tk, gk, sk = fused(split, o, d, lp, mode, shadow_eps)
+            tp, gp, sp_ = fused_plain(split, o, d, lp, mode, shadow_eps)
+            agree = (gk == gp).float().mean().item()
+            sh_agree = (sk == sp_).float().mean().item()
+            both = (gk == gp) & (tp < INF)
+            dt = (tk - tp).abs()[both].max().item() if both.any() else 0.0
+            hit = tp < INF
+            log(f"phase 3b: scene {which} tri mode {mode}: {N_FUSED} rays "
+                f"({int(parked.sum())} parked, {int((~hit).sum())} miss, "
+                f"{int(sp_.sum())} shadowed): gid agree {agree:.6f}, "
+                f"in_shadow agree {sh_agree:.6f}, max-abs dt {dt:.3g}")
+            check(agree >= 0.9999 and sh_agree >= 0.9999,
+                  "fused_kernel disagrees with fused_plain")
+            check(bool((tk[parked] == INF).all() and not sk[parked].any()),
+                  "a parked ray did not come out as an unshadowed miss")
+            err["fused_kernel"] = max(err["fused_kernel"], dt)
+    held["fused_kernel"].append(
+        f"phase 3b: {N_FUSED} random and camera rays (a tenth parked) x 3 "
+        "triangle tests, scenes 1 and 2")
+    log(f"phase 3b done in {time.perf_counter() - t:.1f}s")
+
+    # -- phase 3c: resolve_kernel against resolve_plain -----------------------
+    t = time.perf_counter()
+    primary = {}
+    for which, (sc, _, split, tab) in scenes.items():
+        o, d = cam_ops.camera_rays(sc.camera, FRAME_W, FRAME_H)
+        o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+        t_hit, gid = closest_hit(split, o, d, RenderConfig().tri_mode)
+        p = (o + t_hit[:, None] * d).contiguous()
+        g = gid.to(torch.float32)
+        ak = resolve(tab, g, p)
+        ap = resolve_plain(tab, g, p)
+        e = (ak - ap).abs().max().item()
+        log(f"phase 3c: scene {which}: {g.numel()} primary hits "
+            f"({int((gid < 0).sum())} with gid -1): max-abs over the 11 "
+            f"attributes {e:.3g}")
+        check(bool((gid < 0).any()) and e <= 1e-6,
+              "resolve_kernel disagrees with resolve_plain")
+        err["resolve_kernel"] = max(err["resolve_kernel"], e)
+        primary[which] = (o, d, g, p)
+    held["resolve_kernel"].append(
+        f"phase 3c: the {FRAME_W}x{FRAME_H} primary rays' hit points and "
+        "gids (misses as -1), scenes 1 and 2")
+    log(f"phase 3c done in {time.perf_counter() - t:.1f}s")
+
     # -- phase 4: wholeframe_kernel against wholeframe_plain ------------------
     t = time.perf_counter()
     small = RenderConfig(width=CHECK_W, height=CHECK_H, max_bounces=BOUNCES)
@@ -172,12 +261,69 @@ def main() -> int:
         "and raw / MT+Fresnel / unshadowed 5-bounce variants on scene 1")
     log(f"phase 4 done in {time.perf_counter() - t:.1f}s")
 
+    # -- phase 4b: the emit and consume modes against the plain modes --------
+    t = time.perf_counter()
+    for which, (sc, _, split, tab) in scenes.items():
+        par = wf.make_params(sc.camera, sc.light)
+        ck, sk = wf.wholeframe(split, tab, par, small, bounces=1,
+                               emit_state=True)
+        cp, sp_ = wf.wholeframe_plain(split, tab, par, small, bounces=1,
+                                      emit_state=True)
+        rays6, perm = wf._repack(sp_, 6)
+        rays9, _ = wf._repack(sp_, 9)
+        ret = perm.to(torch.int32)
+        k6, ks6 = wf.wholeframe(split, tab, par, small, bounces=BOUNCES - 1,
+                                emit_state=True, rays=rays6, ret=ret)
+        p6, ps6 = wf.wholeframe_plain(split, tab, par, small,
+                                      bounces=BOUNCES - 1, emit_state=True,
+                                      rays=rays6, ret=ret)
+        k9 = wf.wholeframe(split, tab, par, small, bounces=BOUNCES - 1,
+                           rays=rays9, ret=ret)
+        p9 = wf.wholeframe_plain(split, tab, par, small, bounces=BOUNCES - 1,
+                                 rays=rays9, ret=ret)
+        cols = [(ck - cp).reshape(-1, 3), k6 - p6, k9 - p9]
+        states = [sk - sp_, ks6 - ps6]
+        c_err = max(c.abs().max().item() for c in cols)
+        s_err = max(x.abs().max().item() for x in states)
+        flips = sum(int((c.abs().amax(-1) > 1e-4).sum()) for c in cols)
+        s_flips = sum(int((x.abs() > 1e-4).any(0).sum()) for x in states)
+        log(f"phase 4b: scene {which} {CHECK_W}x{CHECK_H}: emit (bounce 1) "
+            f"and consume (bounces 2-{BOUNCES}, 6 and 9 rows, sorted "
+            f"stream, {int((sp_[0] >= 1e30).sum())} parked): colour max-abs "
+            f"{c_err:.3g}, state max-abs {s_err:.3g}, {flips} px and "
+            f"{s_flips} rays > 1e-4")
+        check(bool(torch.isfinite(ck).all() and torch.isfinite(k6).all()),
+              "non-finite pixels")
+        check(flips <= 3 * CHECK_W * CHECK_H // 1000
+              and s_flips <= 2 * CHECK_W * CHECK_H // 1000,
+              "emit/consume modes disagree with wholeframe_plain")
+        err["wholeframe_kernel"] = max(err["wholeframe_kernel"], c_err,
+                                       s_err)
+    held["wholeframe_kernel"].append(
+        f"phase 4b: emit and consume modes at {CHECK_W}x{CHECK_H}, "
+        f"{BOUNCES} bounces, scenes 1 and 2 (colours and state)")
+    log(f"phase 4b done in {time.perf_counter() - t:.1f}s")
+
     # -- phase 5: the main path at full width ---------------------------------
     cfg = RenderConfig(width=FRAME_W, height=FRAME_H, max_bounces=BOUNCES)
     check(cfg == RenderConfig(), "the main path is the default config")
-    counters = (wf.wholeframe, closest_hit)
-    for fn in counters:
-        fn.launches = 0
+    total = {k: 0 for k in names}
+    by_mode = {}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+        wf.wholeframe.mode_launches.clear()
+
+    def read():
+        got = {k: fn.launches for k, fn in counters.items()}
+        for k, n in got.items():
+            total[k] += n
+        for k, n in wf.wholeframe.mode_launches.items():
+            by_mode[k] = by_mode.get(k, 0) + n
+        return got
+
+    reset()
     frames, queries = {}, {}
     t = time.perf_counter()
     for which, (sc, lin, split, _) in scenes.items():
@@ -196,12 +342,12 @@ def main() -> int:
         queries[which] = (o, d, t_hit, sid, hit, lit_o, lit_d, dist,
                           shadowed)
     torch.cuda.synchronize()
-    launches = {"wholeframe_kernel": wf.wholeframe.launches,
-                "closest_hit_kernel": closest_hit.launches}
+    launches = read()
     log(f"phase 5: main path (render + closest hits + occlusion, scenes 1 "
         f"and 2) in {time.perf_counter() - t:.1f}s; launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    for name in ("wholeframe_kernel", "closest_hit_kernel"):
+        check(launches[name] > 0, f"{name} was not launched on the main "
+              "path")
 
     for which, (sc, _, split, tab) in scenes.items():
         img = frames[which]
@@ -241,6 +387,62 @@ def main() -> int:
     held["closest_hit_kernel"].append(
         f"phase 5: {N_RAYS} primary rays and {N_RAYS} light rays of each "
         "full frame, scenes 1 and 2")
+
+    # -- phase 5b: the sorted-continuation hybrid at full width --------------
+    hyb = cfg.replace(sort_bounces=True)
+    hybrid_err = {}
+    for which, name, c in ((2, "hybrid", hyb), (1, "hybrid", hyb),
+                           (2, "hybrid second_sort",
+                            hyb.replace(second_sort=True))):
+        sc, lin, split, _ = scenes[which]
+        t = time.perf_counter()
+        reset()
+        img = render(sc.flat, lin, sc.camera, sc.light, c, split=split)
+        torch.cuda.synchronize()
+        got = read()
+        want = {k: 0 for k in names}
+        want["wholeframe_kernel"] = 3 if c.second_sort else 2
+        diff = (img - frames[which]).abs().max().item()
+        hybrid_err[f"scene {which} {name}"] = diff
+        log(f"phase 5b: scene {which} {name} {FRAME_W}x{FRAME_H}x{BOUNCES} "
+            f"in {time.perf_counter() - t:.2f}s: launches {got}, modes "
+            f"{dict(wf.wholeframe.mode_launches)}; max-abs {diff:.3g} "
+            "against the one-launch frame")
+        check(got == want, f"the {name} frame launched {got}, not {want}")
+        check(bool(torch.isfinite(img).all()) and diff <= HYBRID_ATOL,
+              f"the {name} frame of scene {which} differs from the "
+              "one-launch frame")
+
+    # -- phase 5c: the per-bounce route at full width ------------------------
+    per_bounce_over = {}
+    wf.USE_WHOLEFRAME = False
+    try:
+        for which in (1, 2):
+            sc, lin, split, _ = scenes[which]
+            t = time.perf_counter()
+            reset()
+            img = render(sc.flat, lin, sc.camera, sc.light, cfg, split=split)
+            torch.cuda.synchronize()
+            got = read()
+            want = {k: 0 for k in names}
+            want["fused_kernel"] = want["resolve_kernel"] = BOUNCES
+            diff = (img - frames[which]).abs().amax(-1)
+            over = int((diff > 1e-4).sum())
+            per_bounce_over[which] = over
+            log(f"phase 5c: scene {which} per-bounce {FRAME_W}x{FRAME_H}x"
+                f"{BOUNCES} in {time.perf_counter() - t:.2f}s: launches "
+                f"{got}; against the one-launch frame max-abs "
+                f"{diff.max().item():.3g}, {over} px > 1e-4 (bound "
+                f"{int(PER_BOUNCE_MAX_FRACTION * diff.numel())})")
+            check(got == want, f"the per-bounce frame launched {got}, not "
+                  f"{want}")
+            check(bool(torch.isfinite(img).all())
+                  and over <= PER_BOUNCE_MAX_FRACTION * diff.numel(),
+                  "the per-bounce frame differs from the one-launch frame")
+    finally:
+        wf.USE_WHOLEFRAME = True
+    log(f"main paths: launches {total}, wholeframe_kernel by mode "
+        f"{by_mode}")
 
     # -- timing ---------------------------------------------------------------
     timing = {}
@@ -292,24 +494,180 @@ def main() -> int:
         f"{k2_plain_ms:.1f} ms ({o.shape[0]} primary rays, scene 1); tests "
         f"{stats.tolist()}, bound {k2_bound:.4f} ms")
 
+    # the hybrid and per-bounce frames
+    hyb_ms, pb_ms = {}, {}
+    for which, (sc, lin, split, tab) in scenes.items():
+        hyb_ms[which] = cuda_ms(lambda: render(sc.flat, lin, sc.camera,
+                                               sc.light, hyb, split=split),
+                                TIMED_FRAMES)
+        log(f"scene {which} hybrid render {FRAME_W}x{FRAME_H}x{BOUNCES}: "
+            f"{hyb_ms[which]:.3f} ms/frame (one-launch {timing[which]:.3f})")
+    wf.USE_WHOLEFRAME = False
+    try:
+        for which, (sc, lin, split, tab) in scenes.items():
+            render(sc.flat, lin, sc.camera, sc.light, cfg, split=split)
+            pb_ms[which] = cuda_ms(lambda: render(sc.flat, lin, sc.camera,
+                                                  sc.light, cfg, split=split),
+                                   TIMED_FRAMES)
+            log(f"scene {which} per-bounce render {FRAME_W}x{FRAME_H}x"
+                f"{BOUNCES}: {pb_ms[which]:.3f} ms/frame")
+    finally:
+        wf.USE_WHOLEFRAME = True
+
+    # the hybrid's parts: emit launch, re-pack + un-sort + composite,
+    # continuation launch (scene 2 first, the production hybrid)
+    modes, parts = {}, {}
+    for which in (2, 1):
+        sc, lin, split, tab = scenes[which]
+        par = wf.make_params(sc.camera, sc.light)
+        acc1, state = wf.wholeframe(split, tab, par, cfg, bounces=1,
+                                    emit_state=True)
+        rays, perm = wf._repack(state, 6)
+        ret = perm.to(torch.int32)
+        rel = wf.wholeframe(split, tab, par, cfg, bounces=BOUNCES - 1,
+                            rays=rays, ret=ret)
+
+        def glue():
+            _, p_ = wf._repack(state, 6)
+            p_.to(torch.int32)
+            return acc1.reshape(-1, 3) + state[6:9].t() * wf._unsort(rel, p_)
+
+        key = whitted._bounce_sort_key(state[0:3].t(), state[3:6].t(),
+                                       state[0] < 1e30)
+        e_ms = cuda_ms(lambda: wf.wholeframe(split, tab, par, cfg, bounces=1,
+                                             emit_state=True), TIMED_FRAMES)
+        g_ms = cuda_ms(glue, TIMED_FRAMES)
+        glue_ms = dict(
+            key=cuda_ms(lambda: whitted._bounce_sort_key(
+                state[0:3].t(), state[3:6].t(), state[0] < 1e30),
+                TIMED_FRAMES),
+            sort=cuda_ms(lambda: torch.sort(key, stable=True), TIMED_FRAMES),
+            gather=cuda_ms(lambda: state[0:6].index_select(1, perm),
+                           TIMED_FRAMES),
+            unsort_composite=cuda_ms(
+                lambda: acc1.reshape(-1, 3) + state[6:9].t()
+                * wf._unsort(rel, perm), TIMED_FRAMES))
+        c_ms = cuda_ms(lambda: wf.wholeframe(split, tab, par, cfg,
+                                             bounces=BOUNCES - 1, rays=rays,
+                                             ret=ret), TIMED_FRAMES)
+        n = FRAME_W * FRAME_H
+        fixed = table_bytes(split) + tab.numel() * 4 + par.numel() * 4
+        stats.zero_()
+        wf.wholeframe(split, tab, par, cfg, bounces=1, emit_state=True,
+                      stats=stats)
+        e_bound, _, e_by = bound_ms(stats, split, out_bytes=n * 12 + n * 36,
+                                    in_bytes=fixed)
+        e_tests = stats.tolist()
+        stats.zero_()
+        wf.wholeframe(split, tab, par, cfg, bounces=BOUNCES - 1, rays=rays,
+                      ret=ret, stats=stats)
+        c_bound, _, c_by = bound_ms(stats, split, out_bytes=n * 12,
+                                    in_bytes=fixed + n * (24 + 4))
+        c_tests = stats.tolist()
+        live = int((state[0] < 1e30).sum())
+        parts[which] = dict(emit_ms=e_ms, repack_unsort_composite_ms=g_ms,
+                            continuation_ms=c_ms, glue_parts_ms=glue_ms,
+                            live_after_bounce_1=live)
+        modes[which] = {
+            "raygen+emit": dict(ms=e_ms, bound_ms=e_bound, bound_by=e_by,
+                                tests=e_tests),
+            "consume": dict(ms=c_ms, bound_ms=c_bound, bound_by=c_by,
+                            tests=c_tests)}
+        log(f"scene {which} hybrid parts: emit {e_ms:.3f} ms (bound "
+            f"{e_bound:.4f}), re-pack + un-sort + composite {g_ms:.3f} ms, "
+            f"continuation {c_ms:.3f} ms (bound {c_bound:.4f}; {live} of "
+            f"{n} rays live after bounce 1); the glue alone: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in glue_ms.items()))
+    sc, lin, split, tab = scenes[2]
+    par = wf.make_params(sc.camera, sc.light)
+    t = time.perf_counter()
+    modes[2]["raygen+emit"]["plain_ms"] = cuda_ms(
+        lambda: wf.wholeframe_plain(split, tab, par, cfg, bounces=1,
+                                    emit_state=True), 1)
+    modes[2]["consume"]["plain_ms"] = cuda_ms(
+        lambda: wf.wholeframe_plain(split, tab, par, cfg,
+                                    bounces=BOUNCES - 1, rays=rays, ret=ret),
+        1)
+    log(f"scene 2 plain emit {modes[2]['raygen+emit']['plain_ms']:.1f} ms, "
+        f"plain consume {modes[2]['consume']['plain_ms']:.1f} ms "
+        f"({time.perf_counter() - t:.1f}s)")
+
+    # fused_kernel and resolve_kernel on each frame's primary rays
+    k3, k5 = {}, {}
+    for which, (sc, lin, split, tab) in scenes.items():
+        o, d, g, p = primary[which]
+        n = o.shape[0]
+        lp = sc.light.position.contiguous()
+        ms = cuda_ms(lambda: fused(split, o, d, lp, cfg.tri_mode,
+                                   shadow_eps), TIMED_FRAMES)
+        plain_ms = cuda_ms(lambda: fused_plain(split, o, d, lp, cfg.tri_mode,
+                                               shadow_eps), 1)
+        stats.zero_()
+        fused(split, o, d, lp, cfg.tri_mode, shadow_eps, stats=stats)
+        bound, _, by = bound_ms(stats, split, out_bytes=n * 9,
+                                in_bytes=table_bytes(split) + n * 24 + 12)
+        k3[which] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, tests=stats.tolist())
+        log(f"scene {which}: fused_kernel {ms:.3f} ms, fused_plain "
+            f"{plain_ms:.1f} ms ({n} primary rays); tests "
+            f"{stats.tolist()}, bound {bound:.4f} ms")
+
+        idx = g.clamp_min(0).long()
+        ms = cuda_ms(lambda: resolve(tab, g, p), TIMED_FRAMES)
+        plain_ms = cuda_ms(lambda: resolve_plain(tab, g, p), 1)
+        lib_ms = cuda_ms(lambda: tab.index_select(0, idx), TIMED_FRAMES)
+        bound, by = bound_of(in_bytes=n * 16 + tab.numel() * 4,
+                             out_bytes=n * 44, ops=n * OPS_RESOLVE)
+        k5[which] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound, bound_by=by)
+        log(f"scene {which}: resolve_kernel {ms:.4f} ms, resolve_plain "
+            f"{plain_ms:.2f} ms, attr_tab.index_select {lib_ms:.4f} ms; "
+            f"bound {bound:.4f} ms ({by})")
+
     rows = [
         dict(name="wholeframe_kernel", route="cuda",
              source="raytracer_tpu_torch/csrc/raytrace.cu",
              replaces="raytracer_tpu/render/wholeframe.py:75",
-             launches=launches["wholeframe_kernel"],
+             launches=total["wholeframe_kernel"],
+             launches_by_mode=by_mode,
              max_abs_err=err["wholeframe_kernel"], ms=k1_ms,
              plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
              library_ms=None,
              frame_ms={str(k): v for k, v in timing.items()},
              per_scene={str(k): v for k, v in k1.items()},
+             modes={str(k): v for k, v in modes.items()},
+             hybrid_frame_ms={str(k): v for k, v in hyb_ms.items()},
+             hybrid_parts_ms={str(k): v for k, v in parts.items()},
+             hybrid_max_abs_vs_one_launch=hybrid_err,
              held_by=held["wholeframe_kernel"]),
         dict(name="closest_hit_kernel", route="cuda",
              source="raytracer_tpu_torch/csrc/raytrace.cu",
              replaces="raytracer_tpu/render/pallas_split.py:961",
-             launches=launches["closest_hit_kernel"],
+             launches=total["closest_hit_kernel"],
              max_abs_err=err["closest_hit_kernel"], ms=k2_ms,
              plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by,
              library_ms=None, held_by=held["closest_hit_kernel"]),
+        dict(name="fused_kernel", route="cuda",
+             source="raytracer_tpu_torch/csrc/raytrace.cu",
+             replaces="raytracer_tpu/render/pallas_split.py:905",
+             launches=total["fused_kernel"],
+             max_abs_err=err["fused_kernel"], ms=k3[2]["ms"],
+             plain_ms=k3[2]["plain_ms"], bound_ms=k3[2]["bound_ms"],
+             bound_by=k3[2]["bound_by"], library_ms=None,
+             per_scene={str(k): v for k, v in k3.items()},
+             per_bounce_frame_ms={str(k): v for k, v in pb_ms.items()},
+             per_bounce_px_over_1e4={str(k): v
+                                     for k, v in per_bounce_over.items()},
+             held_by=held["fused_kernel"]),
+        dict(name="resolve_kernel", route="cuda",
+             source="raytracer_tpu_torch/csrc/raytrace.cu",
+             replaces="raytracer_tpu/render/pallas_split.py:978",
+             launches=total["resolve_kernel"],
+             max_abs_err=err["resolve_kernel"], ms=k5[2]["ms"],
+             plain_ms=k5[2]["plain_ms"], bound_ms=k5[2]["bound_ms"],
+             bound_by=k5[2]["bound_by"], library_ms=k5[2]["library_ms"],
+             per_scene={str(k): v for k, v in k5.items()},
+             held_by=held["resolve_kernel"]),
     ]
     log(f"done in {time.perf_counter() - T0:.1f}s")
     print(card)
@@ -349,20 +707,26 @@ def table_bytes(split):
     return sum(t.numel() * t.element_size() for t in split.device_args())
 
 
+def bound_of(in_bytes, out_bytes, ops):
+    """Least time: the larger of the bytes (each input read once, each
+    output written once) over the memory rate and the f32 operations over
+    the f32 peak. Returns (ms, which of the two bounds it)."""
+    by_bytes = (in_bytes + out_bytes) / PEAK_BYTES
+    by_ops = ops / PEAK_F32
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes > by_ops else "operations")
+
+
 def bound_ms(stats, split, out_bytes, in_bytes):
-    """Least time for this run's tests: the larger of the bytes (each input
-    read once, each output written once) over the memory rate and the
-    counted f32 operations over the f32 peak. Returns (ms, operations,
-    which of the two bounds it)."""
+    """``bound_of`` for this run's walks, from their counted tests.
+    Returns (ms, operations, which of the two bounds it)."""
     pre, node, tri = stats.tolist()
     n_pw = split.n_other - split.n_sph
     ops_pre = ((split.n_sph * OPS_SPHERE + n_pw * OPS_PLANEWALL)
                / max(split.n_other, 1))
     ops = pre * ops_pre + node * OPS_NODE + tri * OPS_TRI
-    by_bytes = (in_bytes + out_bytes) / PEAK_BYTES
-    by_ops = ops / PEAK_F32
-    return (1e3 * max(by_bytes, by_ops), ops,
-            "bytes" if by_bytes > by_ops else "operations")
+    ms, by = bound_of(in_bytes, out_bytes, ops)
+    return ms, ops, by
 
 
 def ptxas_summary(build_log):
@@ -371,9 +735,11 @@ def ptxas_summary(build_log):
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"rt(\d+)(\w+?)I(Li\d+E)?(Lb[01]E)?", m.group(1))
-            name = m.group(1) if not k else k.group(2) + "<" + ",".join(
-                g[2:-1] for g in k.groups()[2:] if g) + ">"
+            k = re.search(r"_ZN2rt\d+(\w+?)(I((?:L[ib]\d+E)+)E|E)",
+                          m.group(1))
+            name = m.group(1) if not k else k.group(1) + (
+                "<" + ",".join(re.findall(r"L[ib](\d+)E", k.group(3)))
+                + ">" if k.group(3) else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:

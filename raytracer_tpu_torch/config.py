@@ -48,7 +48,9 @@ class RenderConfig:
     tile_h: int = 16
     tile_w: int = 128
     interpret: Optional[bool] = None
-    # Sorted-continuation hybrid; not ported yet (render() refuses it).
+    # Sorted-continuation hybrid (render/wholeframe.py::_hybrid): re-sort
+    # the continuation rays after bounce 1; second_sort re-sorts again
+    # after bounce 2.
     sort_bounces: bool = False
     second_sort: bool = False
     use_gram_tri: bool = True

@@ -1,21 +1,33 @@
-// The port's two CUDA kernels for Hopper (sm_90a), with a plain C
-// interface bound from Python with ctypes (render/kernels.py).
+// The port's CUDA kernels for Hopper (sm_90a), with a plain C interface
+// bound from Python with ctypes (render/kernels.py).
 //
 // wholeframe_kernel replaces raytracer_tpu/render/wholeframe.py::
-//   _wholeframe_kernel (75-385) in raygen mode: one thread per pixel runs
-//   the whole Whitted loop, so a frame is one launch.
+//   _wholeframe_kernel (75-385) in its three modes: raygen (one thread per
+//   pixel runs the whole Whitted loop, so a frame is one launch), raygen +
+//   emit_state (bounce 1, plus the continuation state o, d, atten of every
+//   pixel) and consume_state (one thread per given ray: o, d, [atten] and
+//   the image-order pixel index, from which the background is re-derived;
+//   it may emit again). The hybrid launches it on a re-sorted ray stream.
 // closest_hit_kernel replaces raytracer_tpu/render/pallas_split.py::
 //   _split_kernel / _split_body (961-964, 343-651): one thread per ray,
 //   closest hit (t, gid) or occlusion against a per-ray limit.
+// fused_kernel replaces pallas_split.py::_fused_kernel (905-958): one
+//   thread per ray, the closest hit with normals and then the shadow walk
+//   toward the light, so a bounce of the per-bounce route is one launch.
+// resolve_kernel replaces pallas_split.py::_resolve_kernel (978-1033): one
+//   thread per ray gathers its row of the attribute table (the TPU's loop
+//   over a tile's distinct ids is a per-lane gather here).
 //
-// What bounds them on this card: operations, not bytes. The tables
-// (0.25 MB for scene 1, 0.85 MB for scene 2) stay in L2 and L1; a pixel's
-// walks do tens to a hundred pre-pass, node and triangle tests of 27-71
-// f32 operations each (chip_smoke.py counts them). The design is the
-// simple one: a per-thread stackless walk, scalar loads through the
-// read-only cache, threads of a warp on an 8x4 pixel patch so that they
-// walk similar nodes. Divergence between the lanes of a warp is what this
-// design leaves on the table.
+// What bounds them on this card: the walks are bound by operations, not
+// bytes. The tables (0.25 MB for scene 1, 0.85 MB for scene 2) stay in L2
+// and L1; a pixel's walks do tens to a hundred pre-pass, node and triangle
+// tests of 27-71 f32 operations each (chip_smoke.py counts them). The
+// design is the simple one: a per-thread stackless walk, scalar loads
+// through the read-only cache, threads of a warp on an 8x4 pixel patch (or
+// on neighbours of the sorted stream) so that they walk similar nodes.
+// Divergence between the lanes of a warp is what this design leaves on
+// the table. resolve_kernel does no walk: it moves 16 bytes in and 44
+// bytes out per ray and is bound by bytes.
 //
 // Each launcher returns cudaGetLastError() after the launch; the Python
 // wrapper raises if it is not 0. Launches go on the caller's stream and
@@ -37,22 +49,57 @@ __device__ __forceinline__ void add_stats(unsigned long long* stats,
   }
 }
 
-template <int TRI>
+// rays (consume mode): n_rows (6 or 9) rows of n floats, o, d and, with 9
+// rows, the entry attenuation (else 1); ret: the rays' image-order pixel
+// indices y * W + x. out: (n, 3) colours, in image order in raygen mode
+// (n = W * H). state (emit): 9 rows of n floats, o, d, atten.
+template <int TRI, bool CONSUME, bool EMIT>
 __global__ void __launch_bounds__(BLOCK)
 wholeframe_kernel(Tables s, const float* __restrict__ tab,
-                  const float* __restrict__ par, float* __restrict__ out,
+                  const float* __restrict__ par,
+                  const float* __restrict__ rays, int n_rows,
+                  const int* __restrict__ ret, int n,
+                  float* __restrict__ out, float* __restrict__ state,
                   int W, int H, Shade sh, unsigned long long* stats) {
-  int x = blockIdx.x * TILE_W + (int)(threadIdx.x % TILE_W);
-  int y = blockIdx.y * TILE_H + (int)(threadIdx.x / TILE_W);
-  if (x >= W || y >= H) return;
   Params q = load_params(par);
+  State st;
+  float bg[3];
+  long long i;
+  if (CONSUME) {
+    i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+    if (i >= n) return;
+    st.ox = rays[i];
+    st.oy = rays[n + i];
+    st.oz = rays[2LL * n + i];
+    st.dx = rays[3LL * n + i];
+    st.dy = rays[4LL * n + i];
+    st.dz = rays[5LL * n + i];
+    if (n_rows == 9) {
+      st.atr = rays[6LL * n + i];
+      st.atg = rays[7LL * n + i];
+      st.atb = rays[8LL * n + i];
+    } else {
+      st.atr = 1.0f; st.atg = 1.0f; st.atb = 1.0f;
+    }
+    background((float)(ret[i] / W) + q.y_off, H, bg);
+  } else {
+    int x = blockIdx.x * TILE_W + (int)(threadIdx.x % TILE_W);
+    int y = blockIdx.y * TILE_H + (int)(threadIdx.x / TILE_W);
+    if (x >= W || y >= H) return;
+    i = (long long)y * W + x;
+    primary_ray(q, x, y, W, H, st, bg);
+  }
   Counts c = {0u, 0u, 0u};
   float rgb[3];
-  trace_pixel<TRI>(s, tab, q, sh, x, y, W, H, c, rgb);
-  float* o = out + ((long long)y * W + x) * 3;
-  o[0] = rgb[0];
-  o[1] = rgb[1];
-  o[2] = rgb[2];
+  trace_ray<TRI>(s, tab, q, sh, bg, st, c, rgb);
+  out[3 * i] = rgb[0];
+  out[3 * i + 1] = rgb[1];
+  out[3 * i + 2] = rgb[2];
+  if (EMIT) {
+    const float v[9] = {st.ox, st.oy, st.oz, st.dx, st.dy, st.dz,
+                        st.atr, st.atg, st.atb};
+    for (int k = 0; k < 9; ++k) state[k * (long long)n + i] = v[k];
+  }
   add_stats(stats, c);
 }
 
@@ -79,6 +126,40 @@ closest_hit_kernel(Tables s, const float* __restrict__ o,
   add_stats(stats, c);
 }
 
+template <int TRI>
+__global__ void __launch_bounds__(BLOCK)
+fused_kernel(Tables s, const float* __restrict__ o,
+             const float* __restrict__ d, const float* __restrict__ light,
+             int n, float shadow_eps, float* __restrict__ t_out,
+             int* __restrict__ gid_out, unsigned char* __restrict__ sh_out,
+             unsigned long long* stats) {
+  int i = blockIdx.x * BLOCK + (int)threadIdx.x;
+  if (i >= n) return;
+  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                   d[3 * i + 1], d[3 * i + 2]);
+  Counts c = {0u, 0u, 0u};
+  float t, gid;
+  bool in_shadow;
+  fused_ray<TRI>(s, r, ld(light), ld(light + 1), ld(light + 2), shadow_eps,
+                 c, t, gid, in_shadow);
+  t_out[i] = t;
+  gid_out[i] = (int)gid;
+  sh_out[i] = in_shadow ? 1 : 0;
+  add_stats(stats, c);
+}
+
+// out: 11 rows of n floats (n(3), color(3), ka, kd, ks, kf, shininess).
+__global__ void __launch_bounds__(BLOCK)
+resolve_kernel(const float* __restrict__ tab, int n_tab,
+               const float* __restrict__ gid, const float* __restrict__ p,
+               int n, float* __restrict__ out) {
+  int i = blockIdx.x * BLOCK + (int)threadIdx.x;
+  if (i >= n) return;
+  float a[11];
+  resolve_ray(tab, n_tab, gid[i], p[3 * i], p[3 * i + 1], p[3 * i + 2], a);
+  for (int k = 0; k < 11; ++k) out[k * (long long)n + i] = a[k];
+}
+
 }  // namespace rt
 
 extern "C" {
@@ -86,33 +167,39 @@ extern "C" {
 int rt_wholeframe(const int* leaf_start, const int* leaf_count,
                   const int* skip, const float* nodes, const float* pre,
                   const float* tri, int m, int n_other, int n_sph,
-                  const float* tab, const float* par, float* out, int W,
-                  int H, int bounces, float shadow_eps, float reflect_eps,
-                  int use_fresnel, int enable_shadows, int tri_mode,
-                  unsigned long long* stats, void* stream) {
+                  const float* tab, const float* par, const float* rays,
+                  int n_rows, const int* ret, int n, float* out,
+                  float* state, int W, int H, int bounces, float shadow_eps,
+                  float reflect_eps, int use_fresnel, int enable_shadows,
+                  int tri_mode, unsigned long long* stats, void* stream) {
   rt::Tables s = {leaf_start, leaf_count, skip, nodes, pre, tri,
                   m, n_other, n_sph};
   rt::Shade sh = {bounces, shadow_eps, reflect_eps, use_fresnel != 0,
                   enable_shadows != 0};
-  dim3 grid((W + rt::TILE_W - 1) / rt::TILE_W,
-            (H + rt::TILE_H - 1) / rt::TILE_H);
+  bool consume = rays != nullptr, emit = state != nullptr;
+  if (consume && (n_rows != 6 && n_rows != 9)) return (int)cudaErrorInvalidValue;
+  dim3 grid = consume ? dim3((n + rt::BLOCK - 1) / rt::BLOCK)
+                      : dim3((W + rt::TILE_W - 1) / rt::TILE_W,
+                             (H + rt::TILE_H - 1) / rt::TILE_H);
   cudaStream_t st = (cudaStream_t)stream;
+#define RT_LAUNCH(TRI, C, E)                                               \
+  rt::wholeframe_kernel<TRI, C, E><<<grid, rt::BLOCK, 0, st>>>(             \
+      s, tab, par, rays, n_rows, ret, n, out, state, W, H, sh, stats)
+#define RT_MODES(TRI)                                                      \
+  if (consume) {                                                           \
+    if (emit) RT_LAUNCH(TRI, true, true); else RT_LAUNCH(TRI, true, false); \
+  } else {                                                                 \
+    if (emit) RT_LAUNCH(TRI, false, true); else RT_LAUNCH(TRI, false, false); \
+  }
   switch (tri_mode) {
-    case rt::TRI_RAW:
-      rt::wholeframe_kernel<rt::TRI_RAW><<<grid, rt::BLOCK, 0, st>>>(
-          s, tab, par, out, W, H, sh, stats);
-      break;
-    case rt::TRI_GRAM:
-      rt::wholeframe_kernel<rt::TRI_GRAM><<<grid, rt::BLOCK, 0, st>>>(
-          s, tab, par, out, W, H, sh, stats);
-      break;
-    case rt::TRI_MT:
-      rt::wholeframe_kernel<rt::TRI_MT><<<grid, rt::BLOCK, 0, st>>>(
-          s, tab, par, out, W, H, sh, stats);
-      break;
+    case rt::TRI_RAW: RT_MODES(rt::TRI_RAW); break;
+    case rt::TRI_GRAM: RT_MODES(rt::TRI_GRAM); break;
+    case rt::TRI_MT: RT_MODES(rt::TRI_MT); break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef RT_MODES
+#undef RT_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -139,6 +226,38 @@ int rt_closest_hit(const int* leaf_start, const int* leaf_count,
     return (int)cudaErrorInvalidValue;
   }
 #undef RT_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+int rt_fused(const int* leaf_start, const int* leaf_count, const int* skip,
+             const float* nodes, const float* pre, const float* tri, int m,
+             int n_other, int n_sph, const float* o, const float* d,
+             const float* light, int n, float shadow_eps, float* t_out,
+             int* gid_out, unsigned char* sh_out, int tri_mode,
+             unsigned long long* stats, void* stream) {
+  rt::Tables s = {leaf_start, leaf_count, skip, nodes, pre, tri,
+                  m, n_other, n_sph};
+  int grid = (n + rt::BLOCK - 1) / rt::BLOCK;
+  cudaStream_t st = (cudaStream_t)stream;
+#define RT_LAUNCH(TRI)                                                    \
+  rt::fused_kernel<TRI><<<grid, rt::BLOCK, 0, st>>>(                       \
+      s, o, d, light, n, shadow_eps, t_out, gid_out, sh_out, stats)
+  switch (tri_mode) {
+    case rt::TRI_RAW: RT_LAUNCH(rt::TRI_RAW); break;
+    case rt::TRI_GRAM: RT_LAUNCH(rt::TRI_GRAM); break;
+    case rt::TRI_MT: RT_LAUNCH(rt::TRI_MT); break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RT_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+int rt_resolve(const float* tab, int n_tab, const float* gid, const float* p,
+               int n, float* out, void* stream) {
+  int grid = (n + rt::BLOCK - 1) / rt::BLOCK;
+  rt::resolve_kernel<<<grid, rt::BLOCK, 0, (cudaStream_t)stream>>>(
+      tab, n_tab, gid, p, n, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,12 @@
-// Per-ray device code shared by the two kernels in raytrace.cu.
+// Per-ray device code shared by the four kernels in raytrace.cu.
 //
 // Replaces the traversal that the JAX package's TPU kernels inline:
 // raytracer_tpu/render/pallas_split.py::_closest_pass (654-902) and its
 // helpers _pre_sphere (170), _pre_planewall (196), _leafbox_gate (152),
-// _tri_test (224) and _reduce_candidates (326), plus the bounce loop of
-// raytracer_tpu/render/wholeframe.py::_wholeframe_kernel (75-385).
+// _tri_test (224) and _reduce_candidates (326); the bounce loop of
+// raytracer_tpu/render/wholeframe.py::_wholeframe_kernel (75-385) in its
+// raygen, emit_state and consume_state modes; and the per-lane bodies of
+// pallas_split.py::_fused_kernel (905-958) and _resolve_kernel (978-1033).
 //
 // The spec is the per-ray result, not the TPU's packet mechanics: a lane's
 // hit never depends on which other rays share its packet, so each thread
@@ -300,6 +302,7 @@ __device__ bool occluded(const Tables& s, const Ray& r, float limit,
   return false;
 }
 
+
 // Camera and light scalars of the frame (the JAX kernel's par row):
 // light pos(3) + color(3), camera pos/front/right/up (12), half_w, half_h,
 // pixel-row offset of the window.
@@ -327,14 +330,25 @@ struct Shade {
   bool use_fresnel, enable_shadows;
 };
 
-// One pixel's whole Whitted trace (_wholeframe_kernel in raygen mode):
-// raygen and background from the pixel index, then per bounce a closest
-// walk with normals, a shadow walk, the material gather attr_tab[rid],
-// Phong with 1/d attenuation and x0.3 shadows, and the reflection.
-template <int TRI>
-__device__ void trace_pixel(const Tables& s, const float* tab,
-                            const Params& q, const Shade& sh, int x, int y,
-                            int W, int H, Counts& c, float* rgb) {
+// A ray's continuation state: origin, direction, attenuation.
+struct State {
+  float ox, oy, oz, dx, dy, dz, atr, atg, atb;
+};
+
+// Background mix(dark, sky, y/H) of image row yi (the raygen branch's
+// arithmetic; the consume branch derives yi from the pixel index).
+__device__ __forceinline__ void background(float yi, int H, float* bg) {
+  float f_bg = yi / (float)H;
+  bg[0] = BG_DARK_R + BG_SPAN_R * f_bg;
+  bg[1] = BG_DARK_G + BG_SPAN_G * f_bg;
+  bg[2] = BG_DARK_B + BG_SPAN_B * f_bg;
+}
+
+// Raygen: the primary ray and background of pixel (x, y) from the camera
+// scalars (core/camera.get_rays + pixel_ndc, term by term).
+__device__ __forceinline__ void primary_ray(const Params& q, int x, int y,
+                                            int W, int H, State& st,
+                                            float* bg) {
   float xi = (float)x;
   float yi = (float)y + q.y_off;
   float ndc_x = 2.0f * xi / (float)W - 1.0f;
@@ -343,22 +357,38 @@ __device__ void trace_pixel(const Tables& s, const float* tab,
   float vy = (q.cpy + q.fy + ndc_x * q.half_w * q.ry + ndc_y * q.half_h * q.uy) - q.cpy;
   float vz = (q.cpz + q.fz + ndc_x * q.half_w * q.rz + ndc_y * q.half_h * q.uz) - q.cpz;
   float nrm = sqrtf(vx * vx + vy * vy + vz * vz);
-  float ox = q.cpx, oy = q.cpy, oz = q.cpz;
-  float dx = vx / nrm, dy = vy / nrm, dz = vz / nrm;
-  float f_bg = yi / (float)H;
-  float bgr = BG_DARK_R + BG_SPAN_R * f_bg;
-  float bgg = BG_DARK_G + BG_SPAN_G * f_bg;
-  float bgb = BG_DARK_B + BG_SPAN_B * f_bg;
+  st.ox = q.cpx; st.oy = q.cpy; st.oz = q.cpz;
+  st.dx = vx / nrm; st.dy = vy / nrm; st.dz = vz / nrm;
+  st.atr = 1.0f; st.atg = 1.0f; st.atb = 1.0f;
+  background(yi, H, bg);
+}
 
+// One ray's Whitted trace over sh.bounces bounces (the bounce loop of
+// _wholeframe_kernel), shared by the raygen, emit and consume modes: per
+// bounce a closest walk with normals, a shadow walk with t_init = light
+// distance, the material gather attr_tab[rid], Phong with 1/d attenuation
+// and x0.3 shadows, and the reflection. rgb receives the colour added
+// from the entry attenuation st.at*. A ray parked on entry (ox >= 1e30) is
+// dead and adds nothing. On return st is the continuation state: the
+// reflected ray while the ray lives; once it ends (a miss, or ks <= 0) the
+// parked ray, with the attenuation frozen at its last value.
+template <int TRI>
+__device__ void trace_ray(const Tables& s, const float* tab, const Params& q,
+                          const Shade& sh, const float* bg, State& st,
+                          Counts& c, float* rgb) {
   float accr = 0.0f, accg = 0.0f, accb = 0.0f;
-  float atr = 1.0f, atg = 1.0f, atb = 1.0f;
-  for (int b = 0; b < sh.bounces; ++b) {
+  float ox = st.ox, oy = st.oy, oz = st.oz;
+  float dx = st.dx, dy = st.dy, dz = st.dz;
+  float atr = st.atr, atg = st.atg, atb = st.atb;
+  bool alive = ox < 1e30f;
+  for (int b = 0; b < sh.bounces && alive; ++b) {
     Ray ray = make_ray(ox, oy, oz, dx, dy, dz);
     Hit h = closest_walk<TRI, true>(s, G_RID, T_RID, ray, INF, c);
     if (!(h.t < INF)) {   // miss: background, and the ray ends
-      accr = accr + atr * bgr;
-      accg = accg + atg * bgg;
-      accb = accb + atb * bgb;
+      accr = accr + atr * bg[0];
+      accg = accg + atg * bg[1];
+      accb = accb + atb * bg[2];
+      alive = false;
       break;
     }
     float px = ox + h.t * dx;
@@ -410,7 +440,10 @@ __device__ void trace_pixel(const Tables& s, const float* tab,
     accg = accg + atg * col_g;
     accb = accb + atb * col_b;
 
-    if (!(ks > 0.0f)) break;   // no reflection: the ray ends
+    if (!(ks > 0.0f)) {   // no reflection: the ray ends
+      alive = false;
+      break;
+    }
     float dotdn = h.nx * dx + h.ny * dy + h.nz * dz;
     float ndx = dx - 2.0f * dotdn * h.nx;
     float ndy = dy - 2.0f * dotdn * h.ny;
@@ -438,9 +471,71 @@ __device__ void trace_pixel(const Tables& s, const float* tab,
     oz = pz + h.nz * sh.reflect_eps;
     dx = ndx; dy = ndy; dz = ndz;
   }
+  if (!alive && sh.bounces > 0) {   // an ended ray leaves the parked ray
+    ox = PARK_ORIGIN; oy = PARK_ORIGIN; oz = PARK_ORIGIN;
+    dx = PARK_DIR; dy = PARK_DIR; dz = PARK_DIR;
+  }
+  st.ox = ox; st.oy = oy; st.oz = oz;
+  st.dx = dx; st.dy = dy; st.dz = dz;
+  st.atr = atr; st.atg = atg; st.atb = atb;
   rgb[0] = accr;
   rgb[1] = accg;
   rgb[2] = accb;
+}
+
+// _fused_kernel for one ray: the closest hit with normals, then, in the
+// same thread, the shadow ray from p + n * shadow_eps toward the light,
+// walked with t_init = limit (the light distance), so in_shadow = st <
+// limit. A miss parks the shadow ray with limit 0: unshadowed. A parked
+// input ray misses.
+template <int TRI>
+__device__ void fused_ray(const Tables& s, const Ray& r, float lx, float ly,
+                          float lz, float shadow_eps, Counts& c, float& t,
+                          float& gid, bool& in_shadow) {
+  Hit h = closest_walk<TRI, true>(s, G_GID, T_GID, r, INF, c);
+  bool hit = h.t < INF;
+  float ts = hit ? h.t : 0.0f;
+  float px = r.ox + ts * r.dx;
+  float py = r.oy + ts * r.dy;
+  float pz = r.oz + ts * r.dz;
+  float ldx = lx - px;
+  float ldy = ly - py;
+  float ldz = lz - pz;
+  float dist = sqrtf(ldx * ldx + ldy * ldy + ldz * ldz);
+  float inv = 1.0f / jmax(dist, 1e-30f);   // normalize(.., eps=1e-30)
+  Ray sray = hit ? make_ray(px + h.nx * shadow_eps, py + h.ny * shadow_eps,
+                            pz + h.nz * shadow_eps, ldx * inv, ldy * inv,
+                            ldz * inv)
+                 : make_ray(PARK_ORIGIN, PARK_ORIGIN, PARK_ORIGIN, PARK_DIR,
+                            PARK_DIR, PARK_DIR);
+  float limit = hit ? dist : 0.0f;
+  Hit sh_hit = closest_walk<TRI, false>(s, G_GID, T_GID, sray, limit, c);
+  t = h.t;
+  gid = h.id;
+  in_shadow = sh_hit.t < limit;
+}
+
+// _resolve_kernel for one ray: the shading attributes of row max(gid, 0)
+// of attr_tab (n(3), color(3), ka, kd, ks, kf, shininess), where a
+// sphere's normal comes from the hit point p, blended by is_sphere as the
+// JAX kernel does. 1/sqrt is IEEE division of a correctly rounded root
+// (not rsqrtf, which is not correctly rounded). The row is clamped to the
+// table, as the plain version clamps it.
+__device__ __forceinline__ void resolve_ray(const float* tab, int n_tab,
+                                            float gid, float px, float py,
+                                            float pz, float* a) {
+  int si = (int)jmax(gid, 0.0f);
+  si = si < n_tab ? si : n_tab - 1;
+  const float* row = tab + si * ATTR_W;
+  float is_s = ld(row + 14);
+  float rx = px - ld(row + 11);
+  float ry = py - ld(row + 12);
+  float rz = pz - ld(row + 13);
+  float inv = 1.0f / sqrtf(rx * rx + ry * ry + rz * rz + 1e-30f);
+  a[0] = is_s * (rx * inv) + (1.0f - is_s) * ld(row + 0);
+  a[1] = is_s * (ry * inv) + (1.0f - is_s) * ld(row + 1);
+  a[2] = is_s * (rz * inv) + (1.0f - is_s) * ld(row + 2);
+  for (int k = 3; k < 11; ++k) a[k] = ld(row + k);
 }
 
 }  // namespace rt

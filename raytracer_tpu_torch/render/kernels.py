@@ -36,12 +36,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_TABLES = [_P] * 6 + [_I] * 3   # 6 table pointers + m, n_other, n_sph
 _SIGNATURES = {
-    # tables (6 pointers + m, n_other, n_sph), then the kernel's own args
-    "rt_wholeframe": [_P] * 6 + [_I] * 3 + [_P, _P, _P, _I, _I, _I, _F, _F,
-                                            _I, _I, _I, _P, _P],
-    "rt_closest_hit": [_P] * 6 + [_I] * 3 + [_P, _P, _P, _I, _P, _P, _I, _I,
-                                             _P, _P],
+    "rt_wholeframe": _TABLES + [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                                _F, _F, _I, _I, _I, _P, _P],
+    "rt_closest_hit": _TABLES + [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P],
+    "rt_fused": _TABLES + [_P, _P, _P, _I, _F, _P, _P, _P, _I, _P, _P],
+    "rt_resolve": [_P, _I, _P, _P, _I, _P, _P],
 }
 
 

@@ -12,8 +12,15 @@ the plane family (the infinite floor wall is visible only inside it).
 (csrc/raytrace.cu), which replaces the TPU kernel ``_split_kernel`` /
 ``_split_body`` (pallas_split.py:961-964, 343-651). On a CPU tensor it
 runs ``closest_hit_plain``, the same function in PyTorch tensor ops.
-``closest_pass_plain`` is the plain version of the per-ray walk both CUDA
+``closest_pass_plain`` is the plain version of the per-ray walk the CUDA
 kernels share (``_closest_pass``, pallas_split.py:654-902).
+
+The per-bounce route (``whitted.trace``) adds two kernels: ``fused_shadow``
+wraps ``fused_kernel`` (``_fused_kernel``, pallas_split.py:905-958: the
+closest hit and the shadow ray in one launch) and ``resolve`` wraps
+``resolve_kernel`` (``_resolve_kernel``, pallas_split.py:978-1033: the
+shading attributes of a hit). Their plain versions are ``fused_plain`` and
+``resolve_plain``.
 """
 
 from __future__ import annotations
@@ -23,9 +30,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from raytracer_tpu_torch.config import TRI_GRAM, TRI_MT, RenderConfig
+from raytracer_tpu_torch.core.camera import camera_rays
 from raytracer_tpu_torch.device import resolve_device
-from raytracer_tpu_torch.geom.direct import INF, sqrt_rn
-from raytracer_tpu_torch.render import kernels
+from raytracer_tpu_torch.geom.direct import INF, div_rn, sqrt_rn
+from raytracer_tpu_torch.render import kernels, shading, whitted
+from raytracer_tpu_torch.render.whitted import (ATTR_W, PARK_ORIGIN,
+                                                _PARK_DIR as PARK_DIR)
 from raytracer_tpu_torch.render.split_scene import (
     G_B0X, G_GID, G_RID, T_CV, T_CW, T_E1X, T_E2X, T_EVX, T_EWX, T_GID,
     T_NX, T_P1X, T_PD, T_R00, T_R01, T_R11, T_RID, T_S0, T_S1, SplitScene,
@@ -33,6 +43,21 @@ from raytracer_tpu_torch.render.split_scene import (
 
 # Rays per pass of the plain walk: bounds its (rays x leaf size) temporaries.
 PLAIN_CHUNK = 32768
+
+# Route switches of the per-bounce route, as in the JAX package
+# (pallas_split.py:74-128). USE_OCCLUSION: shadow rays through the any-hit
+# occlusion mode of closest_hit_kernel (the JAX package measured it slower
+# on its TPU; off). USE_KERNEL_ATTRS: shading attributes carried through
+# the walk (the JAX _split_kernel_attrs; off there, and not ported:
+# render() refuses it). USE_RESOLVE_KERNEL: attributes from resolve_kernel
+# instead of a row gather. USE_FUSED_SHADOW: closest hit and shadow ray in
+# one launch of fused_kernel.
+USE_OCCLUSION = False
+USE_KERNEL_ATTRS = False
+USE_RESOLVE_KERNEL = True
+USE_FUSED_SHADOW = True
+
+N_ATTRS = 11   # n(3), color(3), ka, kd, ks, kf, shininess
 
 
 class Rays(NamedTuple):
@@ -354,9 +379,139 @@ def closest_hit(split: SplitScene, o: torch.Tensor, d: torch.Tensor,
 closest_hit.launches = 0
 
 
+def fused_plain(split: SplitScene, o: torch.Tensor, d: torch.Tensor,
+                light_pos: torch.Tensor, tri_mode: int, shadow_eps: float):
+    """Plain version of ``fused_kernel``: o, d (R, 3) f32, light_pos (3,).
+    Returns (t, gid int32 (-1 on miss), in_shadow bool) with the formulas
+    of pallas_split.py:929-958: the shadow ray leaves p + n * shadow_eps
+    toward the light and is walked with t_init = limit; a miss parks it
+    with limit 0, so it is unshadowed."""
+    oc = (o[:, 0], o[:, 1], o[:, 2])
+    dc = (d[:, 0], d[:, 1], d[:, 2])
+    t, gid, n = closest_pass_plain(split, oc, dc, tri_mode=tri_mode,
+                                   with_normals=True)
+    hit = t < INF
+    ts = torch.where(hit, t, 0.0)
+    p = [oi + ts * di for oi, di in zip(oc, dc)]
+    ld = [light_pos[k] - p[k] for k in range(3)]
+    dist = sqrt_rn(ld[0] * ld[0] + ld[1] * ld[1] + ld[2] * ld[2])
+    inv = 1.0 / torch.clamp_min(dist, 1e-30)
+    so = tuple(torch.where(hit, p[k] + n[:, k] * shadow_eps, PARK_ORIGIN)
+               for k in range(3))
+    sd = tuple(torch.where(hit, ld[k] * inv, PARK_DIR) for k in range(3))
+    limit = torch.where(hit, dist, 0.0)
+    st, _, _ = closest_pass_plain(split, so, sd, tri_mode=tri_mode,
+                                  t_init=limit)
+    return t, gid.to(torch.int32), st < limit
+
+
+def fused(split: SplitScene, o: torch.Tensor, d: torch.Tensor,
+          light_pos: torch.Tensor, tri_mode: int, shadow_eps: float,
+          stats: Optional[torch.Tensor] = None):
+    """Closest hit and shadow answer of R rays o, d (R, 3) f32 toward the
+    light at light_pos (3,): (t, gid int32, in_shadow bool). On a CUDA
+    tensor this launches ``fused_kernel``; on a CPU tensor it runs
+    ``fused_plain``. ``stats`` as for ``closest_hit``."""
+    dev = o.device
+    if dev.type == "cpu":
+        return fused_plain(split, o, d, light_pos, tri_mode, shadow_eps)
+    if dev.type != "cuda":
+        raise ValueError(f"fused: unsupported device {dev}")
+    n = o.shape[0]
+    kernels.check_tensor("o", o, torch.float32, dev, (None, 3))
+    kernels.check_tensor("d", d, torch.float32, dev, (n, 3))
+    kernels.check_tensor("light_pos", light_pos, torch.float32, dev, (3,))
+    if stats is not None:
+        kernels.check_tensor("stats", stats, torch.int64, dev, (3,))
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    gid = torch.empty(n, dtype=torch.int32, device=dev)
+    in_shadow = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return t, gid, in_shadow
+    status = kernels.library().rt_fused(
+        *kernels.table_args(split, dev), o.data_ptr(), d.data_ptr(),
+        light_pos.data_ptr(), n, shadow_eps, t.data_ptr(), gid.data_ptr(),
+        in_shadow.data_ptr(), tri_mode,
+        None if stats is None else stats.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check_status("fused_kernel", status)
+    fused.launches += 1
+    return t, gid, in_shadow
+
+
+fused.launches = 0
+
+
+def _attrs(out: torch.Tensor):
+    """(n, color, ka, kd, ks, kf, shininess) from the (11, R) rows."""
+    return (out[0:3].t(), out[3:6].t(), out[6], out[7], out[8], out[9],
+            out[10])
+
+
+def resolve_plain(attr_tab: torch.Tensor, gid: torch.Tensor,
+                  p: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``resolve_kernel``: the (11, R) attribute rows of
+    row max(gid, 0) of attr_tab (clamped to the table) at hit points p
+    (R, 3). The sphere normal is rel / sqrt(|rel|^2 + 1e-30), correctly
+    rounded, blended with the plane-family normal by is_sphere."""
+    si = gid.clamp_min(0.0).to(torch.int64).clamp_max(attr_tab.shape[0] - 1)
+    row = attr_tab[si]
+    is_s = row[:, 14]
+    rel = [p[:, k] - row[:, 11 + k] for k in range(3)]
+    inv = 1.0 / sqrt_rn(rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2]
+                        + 1e-30)
+    nrm = [is_s * (rel[k] * inv) + (1.0 - is_s) * row[:, k]
+           for k in range(3)]
+    return torch.stack(nrm + list(row[:, 3:11].unbind(1)))
+
+
+def resolve(attr_tab: torch.Tensor, gid: torch.Tensor,
+            p: torch.Tensor) -> torch.Tensor:
+    """The (11, R) shading-attribute rows of R hits: gid (R,) f32 shape id
+    (-1 on miss, resolved as row 0), p (R, 3) f32 hit points. On a CUDA
+    tensor this launches ``resolve_kernel``; on a CPU tensor it runs
+    ``resolve_plain``."""
+    dev = gid.device
+    if dev.type == "cpu":
+        return resolve_plain(attr_tab, gid, p)
+    if dev.type != "cuda":
+        raise ValueError(f"resolve: unsupported device {dev}")
+    n = gid.shape[0]
+    kernels.check_tensor("attr_tab", attr_tab, torch.float32, dev,
+                         (None, ATTR_W))
+    kernels.check_tensor("gid", gid, torch.float32, dev, (None,))
+    kernels.check_tensor("p", p, torch.float32, dev, (n, 3))
+    if attr_tab.shape[0] == 0:
+        raise ValueError("attr_tab is empty")
+    out = torch.empty((N_ATTRS, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    status = kernels.library().rt_resolve(
+        attr_tab.data_ptr(), attr_tab.shape[0], gid.data_ptr(), p.data_ptr(),
+        n, out.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check_status("resolve_kernel", status)
+    resolve.launches += 1
+    return out
+
+
+resolve.launches = 0
+
+
+def make_attr_resolver(cfg: RenderConfig):
+    """resolve(attr_tab, gid, p) -> (n, color, ka, kd, ks, kf, shininess),
+    as ``pallas_split.make_attr_resolver``: gid (R,) f32 shape id (-1 on
+    miss), p (R, 3) hit points. (The JAX version pads to its tiles; the
+    kernel takes any R.)"""
+
+    def resolver(attr_tab, gid, p):
+        return _attrs(resolve(attr_tab, gid.contiguous(), p.contiguous()))
+
+    return resolver
+
+
 def make_closest_hit(split: SplitScene, cfg: RenderConfig):
-    """closest_hit(o, d) -> (t, sid, hit) plus .occlusion(o, d, max_t),
-    as ``pallas_split.make_closest_hit``: o, d (R, 3) f32 on the split's
+    """closest_hit(o, d) -> (t, sid, hit) plus .occlusion(o, d, max_t) and
+    .fused_shadow(o, d, light_pos) -> (t, sid, hit, in_shadow), as
+    ``pallas_split.make_closest_hit``: o, d (R, 3) f32 on the split's
     device; sid is the int32 shape id (0 on miss), hit = t < INF."""
     tri_mode = cfg.tri_mode
 
@@ -368,31 +523,75 @@ def make_closest_hit(split: SplitScene, cfg: RenderConfig):
         t, _ = closest_hit(split, o, d, tri_mode, max_t=max_t)
         return t == 0.0
 
+    def fused_shadow(o, d, light_pos):
+        t, gid, in_shadow = fused(split, o, d, light_pos, tri_mode,
+                                  cfg.shadow_eps)
+        return t, gid.clamp_min(0), t < INF, in_shadow
+
     closest.occlusion = occlusion
+    closest.fused_shadow = fused_shadow
     return closest
+
+
+def _trace_frame(scene, split: SplitScene, camera, light,
+                 cfg: RenderConfig) -> torch.Tensor:
+    """The per-bounce route: ``whitted.trace`` over image-order primary
+    rays, with the fused closest+shadow launch and the attribute resolve
+    (or the occlusion query / row gather, as the flags say)."""
+    h, w = cfg.height, cfg.width
+    o, d = camera_rays(camera, w, h)
+    o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+    ys = div_rn(torch.arange(h, dtype=torch.float32, device=o.device), h)
+    bg = torch.broadcast_to(shading.background(ys)[:, None, :], (h, w, 3))
+    closest = make_closest_hit(split, cfg)
+    occl = closest.occlusion if USE_OCCLUSION else None
+    fused_fn = closest.fused_shadow \
+        if USE_FUSED_SHADOW and cfg.enable_shadows else None
+    resolve_fn = make_attr_resolver(cfg) if USE_RESOLVE_KERNEL else None
+    colors = whitted.trace(scene, light, closest, o, d, bg.reshape(-1, 3),
+                           cfg, occlusion_fn=occl, fused_fn=fused_fn,
+                           resolve_fn=resolve_fn)
+    return colors.reshape(h, w, 3)
 
 
 def _render_impl(scene, split: SplitScene, camera, light,
                  cfg: RenderConfig) -> torch.Tensor:
-    """The routing of ``pallas_split._render_impl`` for the routes this
-    port has: the one-launch whole-frame route. (The kernels need no
-    power-of-two tiles, so the JAX package's fed-rays fallback has no
-    counterpart here.)"""
-    if cfg.sort_bounces:
-        raise NotImplementedError(
-            "sort_bounces=True (the sorted-continuation hybrid) is not "
-            "ported yet")
+    """The routing of ``pallas_split._render_impl`` (1202-1281):
+
+    - ``wholeframe.USE_WHOLEFRAME`` on (and ``USE_OCCLUSION`` off) with
+      ``sort_bounces`` and ``max_bounces >= 2``: the sorted-continuation
+      hybrid (``wholeframe._render_blocks``: two launches of
+      ``wholeframe_kernel``, three with ``second_sort``);
+    - ``USE_WHOLEFRAME`` on and ``sort_bounces`` off: the one-launch frame;
+    - otherwise the per-bounce route (``whitted.trace`` with
+      ``fused_kernel`` and ``resolve_kernel``).
+
+    The JAX package's ``raygen_ok`` (power-of-two tiles for its f32 pixel
+    mapping) and ``hybrid_ret_exact`` (an f32 pixel index below 2^24)
+    conditions exist for its TPU tiles; the port has no tiles and carries
+    an int32 pixel index, so it drops both, and with them the fed-rays
+    whole-frame fallback. ``USE_KERNEL_ATTRS`` (kernel 4, not ported)
+    raises."""
     from raytracer_tpu_torch.render import wholeframe
-    return wholeframe._render_blocks(scene, split, camera, light, cfg)
+    if USE_KERNEL_ATTRS:
+        raise NotImplementedError(
+            "USE_KERNEL_ATTRS (shading attributes carried through the walk, "
+            "the JAX _split_kernel_attrs) is not ported")
+    use_wholeframe = wholeframe.USE_WHOLEFRAME and not USE_OCCLUSION
+    if use_wholeframe and (not cfg.sort_bounces or cfg.max_bounces >= 2):
+        return wholeframe._render_blocks(scene, split, camera, light, cfg)
+    return _trace_frame(scene, split, camera, light, cfg)
 
 
 def render(scene, bvh, camera, light, cfg: RenderConfig,
            split: Optional[SplitScene] = None,
            differentiable: bool = False, device=None) -> torch.Tensor:
-    """Render (H, W, 3) f32 with the whole-frame kernel (one launch per
-    frame). ``bvh`` is the reference LinearBVH (exact leaf-box gates of
-    the plane family); pass a prebuilt ``split`` to skip host prep.
-    ``device`` None means "cuda"; "cpu" runs the plain versions."""
+    """Render (H, W, 3) f32: the one-launch whole-frame kernel, the
+    sorted-continuation hybrid (``cfg.sort_bounces``) or the per-bounce
+    route, as ``_render_impl`` routes. ``bvh`` is the reference LinearBVH
+    (exact leaf-box gates of the plane family); pass a prebuilt ``split``
+    to skip host prep. ``device`` None means "cuda"; "cpu" runs the plain
+    versions."""
     dev = resolve_device(device)
     if differentiable:
         raise NotImplementedError("differentiable rendering is not ported "

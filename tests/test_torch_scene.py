@@ -135,6 +135,9 @@ def test_render_without_a_device_needs_a_card():
         render(sc.flat, lin, sc.camera, sc.light,
                RenderConfig(width=8, height=6))
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        render(sc.flat, lin, sc.camera, sc.light,
+               RenderConfig(width=8, height=6, sort_bounces=True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         generate_scene(3)
     img = render(sc.flat, lin, sc.camera, sc.light,
                  RenderConfig(width=8, height=6), device="cpu")

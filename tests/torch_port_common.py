@@ -15,6 +15,7 @@ the same JAX function evaluated one operation at a time
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import jax
@@ -22,6 +23,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from raytracer_tpu.accel import build_bvh, linearize
+from raytracer_tpu.core import camera as cam_ops
+from raytracer_tpu.core.scene import SceneBuilder
+from raytracer_tpu.core.types import Light, Material
 from raytracer_tpu.render import split_scene, whitted
 from raytracer_tpu.scenes import generate_scene
 from raytracer_tpu_torch import interop
@@ -50,20 +54,70 @@ def light_numpy(light) -> dict:
             for f in ("position", "base_color", "intensity")}
 
 
+def port(flat, split, camera, light):
+    """A JAX FlatScene, its SplitScene, camera and light as the port's
+    objects on the CPU."""
+    return interop.from_numpy(
+        flat={f: np.asarray(getattr(flat, f))
+              for f in flat.__dataclass_fields__},
+        split_args=[np.asarray(a) for a in split.device_args()],
+        m=split.m, n_other=split.n_other, n_sph=split.n_sph,
+        rid_values=split.rid_values,
+        attr_tab=np.asarray(whitted._attr_table(flat)),
+        camera=camera_numpy(camera), light=light_numpy(light),
+        device="cpu")
+
+
 @functools.lru_cache(maxsize=None)
 def ported(which: int):
     """The JAX package's scene, tables, camera and light as the port's
     objects on the CPU."""
     sc, _, split = jax_scene(which)
-    return interop.from_numpy(
-        flat={f: np.asarray(getattr(sc.flat, f))
-              for f in sc.flat.__dataclass_fields__},
-        split_args=[np.asarray(a) for a in split.device_args()],
-        m=split.m, n_other=split.n_other, n_sph=split.n_sph,
-        rid_values=split.rid_values,
-        attr_tab=np.asarray(whitted._attr_table(sc.flat)),
-        camera=camera_numpy(sc.camera), light=light_numpy(sc.light),
-        device="cpu")
+    return port(sc.flat, split, sc.camera, sc.light)
+
+
+@functools.lru_cache(maxsize=None)
+def small_scene():
+    """Two spheres, a triangle and a wall with a shadow-casting layout (a
+    copy of tests/test_fused_shadow.py::_small_scene): every shadow
+    interaction at a fraction of scene 1's interpret-mode cost. Returns
+    (flat, reference LinearBVH, SplitScene, camera, light) of the JAX
+    package and the same as the port's objects."""
+    b = SceneBuilder()
+    b.add_sphere((0, -0.6, -4), 0.7, Material(color=(0.9, 0.2, 0.2),
+                 specular=0.6, fresnel=0.5))
+    b.add_sphere((1.2, 0.5, -6), 0.8, Material(color=(0.2, 0.9, 0.3)))
+    b.add_triangle((-2.5, -1, -5), (-0.5, -1, -5), (-1.5, 1.2, -5))
+    b.add_wall((-20, 2, -20), 40, 40, (0, 1, 0))
+    flat = b.build()
+    cam = cam_ops.from_euler(position=(0, 0, 0), fov_deg=60, aspect=4 / 3)
+    light = Light((0, 4, -2), (1, 1, 1), 6.0)
+    lin = linearize(build_bvh(flat, 8))
+    split = split_scene.prepare(flat, lin)
+    return (flat, lin, split, cam, light), port(flat, split, cam, light)
+
+
+# The JAX package's triangle unroll for the interpret-mode kernels of the
+# port's tests. TRI_UNROLL (48 by default) is a TPU speed knob, bit-exact
+# at any value (pallas_split.py:91-107); the interpret-mode compile grows
+# with it (the small scene's hybrid frame: ~49 s at 48, ~10 s at 8 on the
+# CPU), so these tests trace the kernels at 8.
+INTERPRET_TRI_UNROLL = 8
+
+
+@contextlib.contextmanager
+def interpret_unroll():
+    """Run the JAX package's Pallas kernels at ``INTERPRET_TRI_UNROLL``,
+    restoring the unroll and clearing the render cache after."""
+    from raytracer_tpu.render import pallas_split
+    old = pallas_split.TRI_UNROLL
+    pallas_split.TRI_UNROLL = INTERPRET_TRI_UNROLL
+    pallas_split._render_impl.clear_cache()
+    try:
+        yield
+    finally:
+        pallas_split.TRI_UNROLL = old
+        pallas_split._render_impl.clear_cache()
 
 
 def op_by_op(fn, *args, **kw):
