@@ -55,6 +55,10 @@ HYBRID_ATOL = 1e-6
 # the plain versions differ on 0.12% of scene 2's pixels and 0.013% of
 # scene 1's.
 PER_BOUNCE_MAX_FRACTION = 0.005
+# The emit and consume modes against their plain versions: besides the
+# few flips over 1e-4 that phase 4 allows, every colour and state value
+# within this (the kernels round each operation as the plain versions do).
+MODE_ATOL = 2e-5
 # Per-ray f32 operations of resolve_kernel (3 subtractions, |rel|^2 + eps,
 # sqrt, division, 3 blended normal components).
 OPS_RESOLVE = 25
@@ -193,12 +197,15 @@ def main() -> int:
             sh_agree = (sk == sp_).float().mean().item()
             both = (gk == gp) & (tp < INF)
             dt = (tk - tp).abs()[both].max().item() if both.any() else 0.0
+            rel = ((tk - tp).abs() / tp.abs().clamp_min(1e-30))[both]
+            rel = rel.max().item() if rel.numel() else 0.0
             hit = tp < INF
             log(f"phase 3b: scene {which} tri mode {mode}: {N_FUSED} rays "
                 f"({int(parked.sum())} parked, {int((~hit).sum())} miss, "
                 f"{int(sp_.sum())} shadowed): gid agree {agree:.6f}, "
-                f"in_shadow agree {sh_agree:.6f}, max-abs dt {dt:.3g}")
-            check(agree >= 0.9999 and sh_agree >= 0.9999,
+                f"in_shadow agree {sh_agree:.6f}, max-abs dt {dt:.3g}, max rel "
+                f"dt {rel:.3g}")
+            check(agree >= 0.9999 and sh_agree >= 0.9999 and rel <= 1e-5,
                   "fused_kernel disagrees with fused_plain")
             check(bool((tk[parked] == INF).all() and not sk[parked].any()),
                   "a parked ray did not come out as an unshadowed miss")
@@ -283,22 +290,24 @@ def main() -> int:
                                  rays=rays9, ret=ret)
         cols = [(ck - cp).reshape(-1, 3), k6 - p6, k9 - p9]
         states = [sk - sp_, ks6 - ps6]
-        c_err = max(c.abs().max().item() for c in cols)
-        s_err = max(x.abs().max().item() for x in states)
-        flips = sum(int((c.abs().amax(-1) > 1e-4).sum()) for c in cols)
-        s_flips = sum(int((x.abs() > 1e-4).any(0).sum()) for x in states)
+        c_diff = [c.abs().amax(-1) for c in cols]
+        s_diff = [x.abs().amax(0) for x in states]
+        c_err = max(c.max().item() for c in c_diff)
+        s_err = max(x.max().item() for x in s_diff)
+        flips = sum(int((c > 1e-4).sum()) for c in c_diff)
+        s_flips = sum(int((x > 1e-4).sum()) for x in s_diff)
+        rest = max(x[x <= 1e-4].max().item() for x in c_diff + s_diff)
         log(f"phase 4b: scene {which} {CHECK_W}x{CHECK_H}: emit (bounce 1) "
             f"and consume (bounces 2-{BOUNCES}, 6 and 9 rows, sorted "
             f"stream, {int((sp_[0] >= 1e30).sum())} parked): colour max-abs "
             f"{c_err:.3g}, state max-abs {s_err:.3g}, {flips} px and "
-            f"{s_flips} rays > 1e-4")
+            f"{s_flips} rays > 1e-4, max-abs of the rest {rest:.3g}")
         check(bool(torch.isfinite(ck).all() and torch.isfinite(k6).all()),
               "non-finite pixels")
-        check(flips <= 3 * CHECK_W * CHECK_H // 1000
-              and s_flips <= 2 * CHECK_W * CHECK_H // 1000,
+        check(flips + s_flips <= CHECK_W * CHECK_H // 1000
+              and rest <= MODE_ATOL,
               "emit/consume modes disagree with wholeframe_plain")
-        err["wholeframe_kernel"] = max(err["wholeframe_kernel"], c_err,
-                                       s_err)
+        err["wholeframe_kernel"] = max(err["wholeframe_kernel"], rest)
     held["wholeframe_kernel"].append(
         f"phase 4b: emit and consume modes at {CHECK_W}x{CHECK_H}, "
         f"{BOUNCES} bounces, scenes 1 and 2 (colours and state)")
@@ -516,7 +525,7 @@ def main() -> int:
 
     # the hybrid's parts: emit launch, re-pack + un-sort + composite,
     # continuation launch (scene 2 first, the production hybrid)
-    modes, parts = {}, {}
+    modes, parts, streams = {}, {}, {}
     for which in (2, 1):
         sc, lin, split, tab = scenes[which]
         par = wf.make_params(sc.camera, sc.light)
@@ -526,6 +535,7 @@ def main() -> int:
         ret = perm.to(torch.int32)
         rel = wf.wholeframe(split, tab, par, cfg, bounces=BOUNCES - 1,
                             rays=rays, ret=ret)
+        streams[which] = (rays, ret)
 
         def glue():
             _, p_ = wf._repack(state, 6)
@@ -580,6 +590,7 @@ def main() -> int:
             + ", ".join(f"{k} {v:.3f} ms" for k, v in glue_ms.items()))
     sc, lin, split, tab = scenes[2]
     par = wf.make_params(sc.camera, sc.light)
+    rays, ret = streams[2]
     t = time.perf_counter()
     modes[2]["raygen+emit"]["plain_ms"] = cuda_ms(
         lambda: wf.wholeframe_plain(split, tab, par, cfg, bounces=1,

@@ -44,19 +44,6 @@ from raytracer_tpu_torch.render.split_scene import (
 # Rays per pass of the plain walk: bounds its (rays x leaf size) temporaries.
 PLAIN_CHUNK = 32768
 
-# Route switches of the per-bounce route, as in the JAX package
-# (pallas_split.py:74-128). USE_OCCLUSION: shadow rays through the any-hit
-# occlusion mode of closest_hit_kernel (the JAX package measured it slower
-# on its TPU; off). USE_KERNEL_ATTRS: shading attributes carried through
-# the walk (the JAX _split_kernel_attrs; off there, and not ported:
-# render() refuses it). USE_RESOLVE_KERNEL: attributes from resolve_kernel
-# instead of a row gather. USE_FUSED_SHADOW: closest hit and shadow ray in
-# one launch of fused_kernel.
-USE_OCCLUSION = False
-USE_KERNEL_ATTRS = False
-USE_RESOLVE_KERNEL = True
-USE_FUSED_SHADOW = True
-
 N_ATTRS = 11   # n(3), color(3), ka, kd, ks, kf, shininess
 
 
@@ -536,21 +523,17 @@ def make_closest_hit(split: SplitScene, cfg: RenderConfig):
 def _trace_frame(scene, split: SplitScene, camera, light,
                  cfg: RenderConfig) -> torch.Tensor:
     """The per-bounce route: ``whitted.trace`` over image-order primary
-    rays, with the fused closest+shadow launch and the attribute resolve
-    (or the occlusion query / row gather, as the flags say)."""
+    rays, with the fused closest+shadow launch (the closest-hit launch
+    when shadows are off) and the attribute resolve."""
     h, w = cfg.height, cfg.width
     o, d = camera_rays(camera, w, h)
     o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
     ys = div_rn(torch.arange(h, dtype=torch.float32, device=o.device), h)
     bg = torch.broadcast_to(shading.background(ys)[:, None, :], (h, w, 3))
     closest = make_closest_hit(split, cfg)
-    occl = closest.occlusion if USE_OCCLUSION else None
-    fused_fn = closest.fused_shadow \
-        if USE_FUSED_SHADOW and cfg.enable_shadows else None
-    resolve_fn = make_attr_resolver(cfg) if USE_RESOLVE_KERNEL else None
-    colors = whitted.trace(scene, light, closest, o, d, bg.reshape(-1, 3),
-                           cfg, occlusion_fn=occl, fused_fn=fused_fn,
-                           resolve_fn=resolve_fn)
+    colors = whitted.trace(scene, light, closest, closest.fused_shadow,
+                           make_attr_resolver(cfg), o, d, bg.reshape(-1, 3),
+                           cfg)
     return colors.reshape(h, w, 3)
 
 
@@ -558,10 +541,10 @@ def _render_impl(scene, split: SplitScene, camera, light,
                  cfg: RenderConfig) -> torch.Tensor:
     """The routing of ``pallas_split._render_impl`` (1202-1281):
 
-    - ``wholeframe.USE_WHOLEFRAME`` on (and ``USE_OCCLUSION`` off) with
-      ``sort_bounces`` and ``max_bounces >= 2``: the sorted-continuation
-      hybrid (``wholeframe._render_blocks``: two launches of
-      ``wholeframe_kernel``, three with ``second_sort``);
+    - ``wholeframe.USE_WHOLEFRAME`` on with ``sort_bounces`` and
+      ``max_bounces >= 2``: the sorted-continuation hybrid
+      (``wholeframe._render_blocks``: two launches of ``wholeframe_kernel``,
+      three with ``second_sort``);
     - ``USE_WHOLEFRAME`` on and ``sort_bounces`` off: the one-launch frame;
     - otherwise the per-bounce route (``whitted.trace`` with
       ``fused_kernel`` and ``resolve_kernel``).
@@ -570,15 +553,14 @@ def _render_impl(scene, split: SplitScene, camera, light,
     mapping) and ``hybrid_ret_exact`` (an f32 pixel index below 2^24)
     conditions exist for its TPU tiles; the port has no tiles and carries
     an int32 pixel index, so it drops both, and with them the fed-rays
-    whole-frame fallback. ``USE_KERNEL_ATTRS`` (kernel 4, not ported)
-    raises."""
+    whole-frame fallback. The JAX package's A/B switches of the per-bounce
+    route (``USE_OCCLUSION``, ``USE_FUSED_SHADOW``, ``USE_RESOLVE_KERNEL``,
+    ``USE_KERNEL_ATTRS``, pallas_split.py:72-128) have no counterpart: the
+    port takes their production settings, and kernel 4 (attributes
+    carried through the walk, off there) is not ported."""
     from raytracer_tpu_torch.render import wholeframe
-    if USE_KERNEL_ATTRS:
-        raise NotImplementedError(
-            "USE_KERNEL_ATTRS (shading attributes carried through the walk, "
-            "the JAX _split_kernel_attrs) is not ported")
-    use_wholeframe = wholeframe.USE_WHOLEFRAME and not USE_OCCLUSION
-    if use_wholeframe and (not cfg.sort_bounces or cfg.max_bounces >= 2):
+    if wholeframe.USE_WHOLEFRAME and (not cfg.sort_bounces
+                                      or cfg.max_bounces >= 2):
         return wholeframe._render_blocks(scene, split, camera, light, cfg)
     return _trace_frame(scene, split, camera, light, cfg)
 

@@ -22,7 +22,7 @@ import functools
 import torch
 
 from raytracer_tpu_torch.core.scene import SPHERE, FlatScene
-from raytracer_tpu_torch.geom.direct import reflect, sqrt_rn
+from raytracer_tpu_torch.geom.direct import reflect
 from raytracer_tpu_torch.render import shading
 
 # Terminated lanes are parked on a ray that misses every box and shape at
@@ -92,17 +92,18 @@ def _where3(mask, a, b):
     return torch.where(mask[:, None], a, b)
 
 
-def trace(scene: FlatScene, light, closest_hit_fn, o: torch.Tensor,
-          d: torch.Tensor, bg: torch.Tensor, cfg, occlusion_fn=None,
-          fused_fn=None, resolve_fn=None) -> torch.Tensor:
+def trace(scene: FlatScene, light, closest_hit_fn, fused_fn, resolve_fn,
+          o: torch.Tensor, d: torch.Tensor, bg: torch.Tensor,
+          cfg) -> torch.Tensor:
     """Trace R rays to completion. o, d, bg: (R, 3). Returns (R, 3).
 
-    closest_hit_fn(o, d) -> (t, sid, hit). occlusion_fn(o, d, max_t) ->
-    bool: an any-hit shadow query used instead of a closest-hit shadow
-    ray. fused_fn(o, d, light_pos) -> (t, sid, hit, in_shadow): closest
-    hit and shadow answer in one launch; takes precedence over
-    occlusion_fn. resolve_fn(attr_tab, gid, p) -> (n, color, ka, kd, ks,
-    kf, shininess): the attribute resolve instead of the row gather.
+    fused_fn(o, d, light_pos) -> (t, sid, hit, in_shadow): closest hit and
+    shadow answer in one launch. closest_hit_fn(o, d) -> (t, sid, hit):
+    the query when shadows are off. resolve_fn(attr_tab, gid, p) -> (n,
+    color, ka, kd, ks, kf, shininess): the shading attributes of the hits.
+    (The JAX function also takes an any-hit ``occlusion_fn``, a
+    closest-hit shadow ray and a row gather, behind TPU A/B switches; the
+    port keeps only the production route.)
 
     With cfg.sort_bounces the rays are re-packed once after bounce 1 by
     the bounce-sort key (a stable sort plus gathers, where the JAX package
@@ -111,7 +112,7 @@ def trace(scene: FlatScene, light, closest_hit_fn, o: torch.Tensor,
     a bit and the background is composited once, at the end, in the
     original order."""
     light_pos, light_color = light.position, light.color
-    shadow_eps, reflect_eps = cfg.shadow_eps, cfg.reflect_eps
+    reflect_eps = cfg.reflect_eps
     n_rays = o.shape[0]
     dev = o.device
     accum = torch.zeros_like(o)
@@ -120,13 +121,14 @@ def trace(scene: FlatScene, light, closest_hit_fn, o: torch.Tensor,
     missed = torch.zeros(n_rays, dtype=torch.bool, device=dev)
     ret = torch.arange(n_rays, device=dev)
     attr_tab = _attr_table(scene)
-    use_fused = fused_fn is not None and cfg.enable_shadows
 
     for i in range(cfg.max_bounces):
-        if use_fused:
+        # closest hit and shadow answer (comp:466-480 / 562-580)
+        if cfg.enable_shadows:
             t, sid, hit, in_shadow = fused_fn(o, d, light_pos)
         else:
             t, sid, hit = closest_hit_fn(o, d)
+            in_shadow = torch.zeros_like(hit)
 
         # miss: attenuated background, and the ray ends (comp:454-458)
         miss_now = alive & ~hit
@@ -137,35 +139,8 @@ def trace(scene: FlatScene, light, closest_hit_fn, o: torch.Tensor,
         live = alive & hit
 
         p = o + t[:, None] * d
-        if resolve_fn is not None:
-            n, mat_color, k_a, k_d, k_s, k_f, shin = resolve_fn(
-                attr_tab, sid.to(torch.float32), p)
-        else:
-            row = attr_tab[sid.long()]
-            mat_color = row[:, 3:6]
-            k_a, k_d, k_s, k_f, shin = row[:, 6:11].unbind(1)
-            # plane family from the table; spheres from the hit point
-            rel = p - row[:, 11:14]
-            inv = 1.0 / sqrt_rn(shading._dot(rel, rel)[:, None] + 1e-30)
-            is_sph = row[:, 14:15]
-            n = is_sph * (rel * inv) + (1.0 - is_sph) * row[:, 0:3]
-
-        # shadow ray (comp:466-480 / 562-580)
-        if not use_fused:
-            if cfg.enable_shadows:
-                to_light = light_pos - p
-                light_dist = sqrt_rn(shading._dot(to_light, to_light))
-                s_o = p + n * shadow_eps
-                s_d = to_light / torch.clamp_min(light_dist, 1e-30)[:, None]
-                if occlusion_fn is not None:
-                    in_shadow = occlusion_fn(s_o.contiguous(),
-                                             s_d.contiguous(), light_dist)
-                else:
-                    s_t, _, s_hit = closest_hit_fn(s_o.contiguous(),
-                                                   s_d.contiguous())
-                    in_shadow = s_hit & (s_t < light_dist)
-            else:
-                in_shadow = torch.zeros_like(hit)
+        n, mat_color, k_a, k_d, k_s, k_f, shin = resolve_fn(
+            attr_tab, sid.to(torch.float32), p)
 
         color = shading.phong(p, n, d, light_pos, light_color, mat_color,
                               k_a, k_d, k_s, shin, attenuate=True)

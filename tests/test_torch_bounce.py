@@ -1,12 +1,14 @@
 """The port's per-bounce route (``whitted.trace`` with the fused
 closest+shadow query and the attribute resolve; plain versions on the
-CPU): ``fused_shadow`` and ``make_attr_resolver`` against the JAX
-package's Pallas kernels in interpret mode on a small scene, and the
+CPU): ``fused_shadow`` against the JAX package's fused Pallas kernel in
+interpret mode on a small scene, ``make_attr_resolver`` against the JAX
+resolver's formula (pallas_split.py:1020-1030) in plain jnp, and the
 per-bounce ``render()`` against the JAX oracle ``reference.render`` with
 the reference tree's leaf boxes on scenes 1 and 2."""
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +21,6 @@ from raytracer_tpu.render import pallas_split
 from raytracer_tpu.render import whitted as jax_whitted
 from raytracer_tpu.render.reference import render as render_ref
 from raytracer_tpu_torch.config import RenderConfig
-from raytracer_tpu_torch.render import split as port_split
 from raytracer_tpu_torch.render import whitted, wholeframe
 from raytracer_tpu_torch.render.split import (make_attr_resolver,
                                               make_closest_hit, render)
@@ -77,6 +78,20 @@ def test_fused_shadow_matches_jax():
     assert not beyond.any(), np.nonzero(beyond)
 
 
+def _jax_resolve(attr_tab, gid, p):
+    """The JAX resolver's arithmetic (``_resolve_kernel``,
+    pallas_split.py:1020-1030), with an XLA row gather in place of the
+    kernel's loop over the distinct shape ids."""
+    row = jnp.take(attr_tab, jnp.maximum(gid, 0.0).astype(jnp.int32), axis=0)
+    is_s = row[:, 14]
+    rx, ry, rz = (p[:, k] - row[:, 11 + k] for k in range(3))
+    inv = jax.lax.rsqrt(rx * rx + ry * ry + rz * rz + 1e-30)
+    n = jnp.stack([is_s * (r * inv) + (1.0 - is_s) * row[:, k]
+                   for k, r in enumerate((rx, ry, rz))], -1)
+    return (n, row[:, 3:6], row[:, 6], row[:, 7], row[:, 8], row[:, 9],
+            row[:, 10])
+
+
 def test_attr_resolver_matches_jax():
     """Material columns equal; normals within NORMAL_ATOL (IEEE 1/sqrt
     against lax.rsqrt). gid -1 resolves as row 0."""
@@ -84,8 +99,8 @@ def test_attr_resolver_matches_jax():
     rng = np.random.default_rng(12)
     gid = rng.choice([-1, 0, 1, 2, 3], 256).astype(np.float32)
     pts = rng.uniform(-3.0, 3.0, (256, 3)).astype(np.float32)
-    want = pallas_split.make_attr_resolver(JAX_KERNEL_CFG)(
-        jax_whitted._attr_table(flat), jnp.asarray(gid), jnp.asarray(pts))
+    want = _jax_resolve(jax_whitted._attr_table(flat), jnp.asarray(gid),
+                        jnp.asarray(pts))
     got = make_attr_resolver(RenderConfig())(
         p.attr_tab, torch.from_numpy(gid), torch.from_numpy(pts))
     want = [np.asarray(x) for x in want]
@@ -100,12 +115,12 @@ def test_attr_resolver_matches_jax():
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(which, max_bounces):
+def _reference(which, max_bounces, enable_shadows):
     """The JAX oracle at 24x18 (jitted, and one operation at a time)."""
     sc, lin, _ = jax_scene(which)
     lb = shape_leaf_boxes(lin, sc.num_shapes)
     cfg = JaxConfig(width=24, height=18, max_bounces=max_bounces,
-                    ray_chunk=24 * 18)
+                    enable_shadows=enable_shadows, ray_chunk=24 * 18)
     jitted = np.asarray(render_ref(sc.flat, sc.camera, sc.light, cfg,
                                    leaf_boxes=lb))
     opbyop = op_by_op(render_ref, sc.flat, sc.camera, sc.light, cfg,
@@ -113,16 +128,14 @@ def _reference(which, max_bounces):
     return jitted, opbyop
 
 
-# route: (config changes, wholeframe flags, split flags)
+# route: (config changes, wholeframe flags)
 ROUTES = {
-    "per-bounce": ({}, {"USE_WHOLEFRAME": False}, {}),
-    "per-bounce-sorted": ({"sort_bounces": True},
-                          {"USE_WHOLEFRAME": False}, {}),
-    "sorted-1-bounce": ({"sort_bounces": True, "max_bounces": 1}, {}, {}),
-    "occlusion-and-gather": ({}, {"USE_WHOLEFRAME": False},
-                             {"USE_OCCLUSION": True,
-                              "USE_FUSED_SHADOW": False,
-                              "USE_RESOLVE_KERNEL": False}),
+    "per-bounce": ({}, {"USE_WHOLEFRAME": False}),
+    "per-bounce-sorted": ({"sort_bounces": True}, {"USE_WHOLEFRAME": False}),
+    "sorted-1-bounce": ({"sort_bounces": True, "max_bounces": 1}, {}),
+    # the closest-hit launch in place of the fused one
+    "per-bounce-unshadowed": ({"enable_shadows": False},
+                              {"USE_WHOLEFRAME": False}),
 }
 
 
@@ -133,16 +146,14 @@ def test_per_bounce_render_matches_oracle(monkeypatch, which, route):
     most 2 (the Gram test's edge flips, as in tests/test_torch_render.py).
     The sorted variants re-associate only, so they are held against the
     unsorted oracle."""
-    kw, wf_flags, split_flags = ROUTES[route]
+    kw, wf_flags = ROUTES[route]
     for name, value in wf_flags.items():
         monkeypatch.setattr(wholeframe, name, value)
-    for name, value in split_flags.items():
-        monkeypatch.setattr(port_split, name, value)
     cfg = RenderConfig(width=24, height=18, max_bounces=3).replace(**kw)
     p = ported(which)
     img = render(p.flat, None, p.camera, p.light, cfg, split=p.split,
                  device="cpu").numpy()
-    jitted, opbyop = _reference(which, cfg.max_bounces)
+    jitted, opbyop = _reference(which, cfg.max_bounces, cfg.enable_shadows)
     assert img.shape == (18, 24, 3) and np.isfinite(img).all()
     beyond, _ = held(img, jitted, opbyop, atol=1e-4, axis=-1)
     assert beyond.sum() <= 2, f"{beyond.sum()} pixels beyond 1e-4"
