@@ -6,14 +6,17 @@ card. Run from the repository root:
 
 It builds the CUDA kernels from csrc/ with nvcc and holds each kernel
 (wholeframe_kernel in its raygen, emit and consume modes,
-closest_hit_kernel, fused_kernel, resolve_kernel) against its plain
-PyTorch version on the card. Then it drives the main paths at 800x600
-with 3 bounces, each with every launch counter set to 0 just before it and
-read just after: the one-launch frame of scenes 1 and 2 with the
-closest-hit and occlusion queries; the sorted-continuation hybrid
-(render(sort_bounces=True)) of scenes 1 and 2, and scene 2 with
-second_sort; the per-bounce route (wholeframe.USE_WHOLEFRAME off) of
-scenes 1 and 2. It times them with CUDA events and prints one JSON line
+closest_hit_kernel, fused_kernel, resolve_kernel, packet_kernel,
+occlusion_kernel, brute_kernel) against its plain PyTorch version on the
+card. Then it drives the main paths at 800x600 with 3 bounces, each with
+every launch counter set to 0 just before it and read just after: the
+one-launch frame of scenes 1 and 2 with the closest-hit and occlusion
+queries; the sorted-continuation hybrid (render(sort_bounces=True)) of
+scenes 1 and 2, and scene 2 with second_sort; the per-bounce route
+(wholeframe.USE_WHOLEFRAME off) of scenes 1 and 2; the packet-BVH
+renderer (also with packet.USE_OCCLUSION), the brute-force renderer and
+the wavefront renderer of scenes 1 and 2, whose frames are held against
+the wavefront's. It times them with CUDA events and prints one JSON line
 of the kernels and, last, {"ok": true, "device": {...}}. Any failed check
 raises, so the script exits non-zero and prints no result. Without a CUDA
 device it exits non-zero at once.
@@ -62,6 +65,15 @@ MODE_ATOL = 2e-5
 # Per-ray f32 operations of resolve_kernel (3 subtractions, |rel|^2 + eps,
 # sqrt, division, 3 blended normal components).
 OPS_RESOLVE = 25
+# f32 operations of the packed-row tests (csrc/raytrace.cuh: row_plane,
+# row_wall_inside, row_bary_inside, row_mt, with the strict-< update) by
+# shape type, and of packet_kernel's node probe with its cull compares.
+OPS_ROW = {0: OPS_SPHERE, 1: 26, 2: 43, 3: 49}
+OPS_ROW_MT = 58
+OPS_NODE_CULL = OPS_NODE + 2
+# The packet and brute-force frames against the wavefront frame (the JAX
+# package's bars, tests/test_pallas_bvh.py:33 and tests/test_pallas.py:36).
+PACKET_ATOL, BRUTE_ATOL = 2e-5, 1e-4
 
 
 def log(msg):
@@ -84,7 +96,9 @@ def main() -> int:
     from raytracer_tpu_torch.config import RenderConfig
     from raytracer_tpu_torch.core import camera as cam_ops
     from raytracer_tpu_torch.geom.direct import INF
-    from raytracer_tpu_torch.render import kernels, split_scene, whitted
+    from raytracer_tpu_torch.accel.linearize import shape_leaf_boxes
+    from raytracer_tpu_torch.render import (brute, kernels, packet,
+                                            split_scene, wavefront, whitted)
     from raytracer_tpu_torch.render import wholeframe as wf
     from raytracer_tpu_torch.render.split import (closest_hit,
                                                   closest_hit_plain, fused,
@@ -131,10 +145,13 @@ def main() -> int:
     log(f"scenes 1, 2 prepared in {time.perf_counter() - t:.1f}s")
     gen = torch.Generator().manual_seed(1234)
     names = ("wholeframe_kernel", "closest_hit_kernel", "fused_kernel",
-             "resolve_kernel")
+             "resolve_kernel", "packet_kernel", "occlusion_kernel",
+             "brute_kernel")
     err = {k: 0.0 for k in names}
     held = {k: [] for k in names}
-    counters = dict(zip(names, (wf.wholeframe, closest_hit, fused, resolve)))
+    counters = dict(zip(names, (wf.wholeframe, closest_hit, fused, resolve,
+                                packet.packet_hit, packet.occlusion,
+                                brute.brute_hit)))
 
     # -- phase 3: closest_hit_kernel against closest_hit_plain ----------------
     t = time.perf_counter()
@@ -238,6 +255,89 @@ def main() -> int:
         f"phase 3c: the {FRAME_W}x{FRAME_H} primary rays' hit points and "
         "gids (misses as -1), scenes 1 and 2")
     log(f"phase 3c done in {time.perf_counter() - t:.1f}s")
+
+    # -- phase 3d: packet, occlusion and brute kernels against their plain
+    # versions ----------------------------------------------------------------
+    t = time.perf_counter()
+    trees, brute_rows = {}, {}
+    for which, (sc, lin, _, _) in scenes.items():
+        o, d = query_rays(cam_ops, sc.camera, gen, dev)
+        u = torch.rand(N_RAYS, generator=gen).to(dev)
+        perm, counts = brute.sort_scene_by_type(sc.flat)
+        for use_mt in (False, True):
+            t_by_cull = {}
+            for t_cull in (False, True):
+                tree = packet.make_tree(lin, sc.flat, t_cull=t_cull)
+                trees[which, t_cull] = tree
+                tk, rk = packet.packet_hit(tree, o, d, use_mt, t_cull)
+                tp, rp = packet.packet_plain(tree, o, d, use_mt, t_cull)
+                dt = (tk - tp).abs().max().item()
+                agree = (rk == rp).float().mean().item()
+                limit = torch.where(tp < INF, tp * (0.5 + u), 100 * u)
+                limit[:8], limit[8:16] = float("inf"), float("nan")
+                ok_ = packet.occlusion(tree, o, d, limit, use_mt, t_cull)
+                op_ = packet.occlusion_plain(tree, o, d, limit, use_mt,
+                                             t_cull)
+                occ_agree = (ok_ == op_).float().mean().item()
+                t_by_cull[t_cull] = (tk, rk)
+                err["packet_kernel"] = max(err["packet_kernel"], dt)
+                err["occlusion_kernel"] = max(
+                    err["occlusion_kernel"],
+                    (ok_.float() - op_.float()).abs().max().item())
+                log(f"phase 3d: scene {which} mt {int(use_mt)} t_cull "
+                    f"{int(t_cull)}: packet max-abs dt {dt:.3g}, row agree "
+                    f"{agree:.6f} ({int((tp < INF).sum())} hits); occlusion "
+                    f"agree {occ_agree:.6f} ({int(op_.sum())} occluded)")
+                check(dt == 0 and agree == 1.0 and occ_agree == 1.0,
+                      "packet/occlusion kernel disagrees with its plain "
+                      "version")
+            (t0_, r0_), (t1_, r1_) = t_by_cull[False], t_by_cull[True]
+            flips = int(((t0_ != t1_) | (r0_ != r1_)).sum())
+            log(f"phase 3d: scene {which} mt {int(use_mt)}: t_cull on and "
+                f"off differ on {flips} of {N_RAYS} rays")
+            check(flips == 0, "t_cull on and off disagree")
+            for gate in (False, True):
+                boxes = shape_leaf_boxes(lin, sc.num_shapes) if gate else None
+                rows = brute.pack_rows_ext(sc.flat, perm, boxes)
+                brute_rows[which, gate] = rows
+                tk, rk = brute.brute_hit(rows, counts, o, d, use_mt, gate)
+                tp, rp = brute.brute_plain(rows, counts, o, d, use_mt, gate)
+                dt = (tk - tp).abs().max().item()
+                agree = (rk == rp).float().mean().item()
+                log(f"phase 3d: scene {which} mt {int(use_mt)} gate "
+                    f"{int(gate)}: brute max-abs dt {dt:.3g}, row agree "
+                    f"{agree:.6f} ({int((tp < INF).sum())} hits)")
+                check(dt == 0 and agree == 1.0,
+                      "brute_kernel disagrees with brute_plain")
+                err["brute_kernel"] = max(err["brute_kernel"], dt)
+    # brute_kernel's plane loop: no reference scene has a plane
+    typed = typed_scene(dev)
+    o, d = query_rays(cam_ops, cam_ops.from_euler(fov_deg=60, aspect=4 / 3,
+                                                  device=dev), gen, dev)
+    perm, counts = brute.sort_scene_by_type(typed)
+    rows = brute.pack_rows_ext(typed, perm)
+    for use_mt in (False, True):
+        for gate in (False, True):
+            tk, rk = brute.brute_hit(rows, counts, o, d, use_mt, gate)
+            tp, rp = brute.brute_plain(rows, counts, o, d, use_mt, gate)
+            dt = (tk - tp).abs().max().item()
+            agree = (rk == rp).float().mean().item()
+            types = sorted(set(typed.shape_type[perm.long().to(dev)][
+                rp.long()][tp < INF].tolist()))
+            log(f"phase 3d: typed scene {counts} mt {int(use_mt)} gate "
+                f"{int(gate)}: brute max-abs dt {dt:.3g}, row agree "
+                f"{agree:.6f}; types hit {types}")
+            check(dt == 0 and agree == 1.0 and 1 in types,
+                  "brute_kernel disagrees with brute_plain on the typed "
+                  "scene")
+    for name in ("packet_kernel", "occlusion_kernel", "brute_kernel"):
+        held[name].append(
+            f"phase 3d: {N_RAYS} random and camera rays (a tenth parked, 8 "
+            "NaN, 8 of zero direction) x barycentric and MT x "
+            + ("gate on and off" if name == "brute_kernel" else
+               "t_cull on and off") + ", scenes 1 and 2"
+            + (" and a scene with a plane" if name == "brute_kernel" else ""))
+    log(f"phase 3d done in {time.perf_counter() - t:.1f}s")
 
     # -- phase 4: wholeframe_kernel against wholeframe_plain ------------------
     t = time.perf_counter()
@@ -450,6 +550,62 @@ def main() -> int:
                   "the per-bounce frame differs from the one-launch frame")
     finally:
         wf.USE_WHOLEFRAME = True
+    # -- phase 5d: the packet, brute-force and wavefront renderers ----------
+    renderers = {
+        "packet": (packet.render, {"packet_kernel": 2 * BOUNCES}),
+        "packet+occlusion": (packet.render, {
+            "packet_kernel": BOUNCES, "occlusion_kernel": BOUNCES}),
+        "brute": (brute.render, {"brute_kernel": 2 * BOUNCES}),
+    }
+    alt_frames, alt_err, wave_s = {}, {}, {}
+    wave_cfg = cfg.replace(ray_chunk=FRAME_W * FRAME_H)   # one wave
+    for which in (1, 2):
+        sc, lin, _, _ = scenes[which]
+        t = time.perf_counter()
+        reset()
+        wave = wavefront.render(sc.flat, lin, sc.camera, sc.light, wave_cfg)
+        torch.cuda.synchronize()
+        got = read()
+        wave_s[which] = time.perf_counter() - t
+        log(f"phase 5d: scene {which} wavefront {FRAME_W}x{FRAME_H}x"
+            f"{BOUNCES} in {wave_s[which]:.2f}s: launches {got}")
+        check(not any(got.values()), "the wavefront frame launched kernels")
+        check(bool(torch.isfinite(wave).all()) and wave.std().item() > 1e-3,
+              "the wavefront frame is not finite or constant")
+        for name, (render_fn, launched) in renderers.items():
+            packet.USE_OCCLUSION = name == "packet+occlusion"
+            try:
+                t = time.perf_counter()
+                reset()
+                img = render_fn(sc.flat, lin, sc.camera, sc.light, cfg)
+                torch.cuda.synchronize()
+                got = read()
+            finally:
+                packet.USE_OCCLUSION = False
+            want = {k: launched.get(k, 0) for k in names}
+            vs_wave = (img - wave).abs().max().item()
+            over = int(((img - frames[which]).abs().amax(-1) > 1e-4).sum())
+            alt_frames[which, name] = img
+            alt_err[f"scene {which} {name}"] = dict(
+                max_abs_vs_wavefront=vs_wave, px_over_1e4_vs_one_launch=over)
+            bar = BRUTE_ATOL if name == "brute" else PACKET_ATOL
+            bound = int(PER_BOUNCE_MAX_FRACTION * FRAME_W * FRAME_H)
+            log(f"phase 5d: scene {which} {name} {FRAME_W}x{FRAME_H}x"
+                f"{BOUNCES} in {time.perf_counter() - t:.2f}s: launches "
+                f"{got}; max-abs {vs_wave:.3g} against the wavefront frame "
+                f"(bar {bar:g}), {over} px > 1e-4 against the one-launch "
+                f"frame (bound {bound})")
+            check(got == want, f"the {name} frame launched {got}, not {want}")
+            check(bool(torch.isfinite(img).all()) and vs_wave <= bar,
+                  f"the {name} frame differs from the wavefront frame")
+            check(over <= bound,
+                  f"the {name} frame differs from the one-launch frame")
+    held["packet_kernel"].append(
+        f"phase 5d: packet frames of scenes 1 and 2 at {FRAME_W}x"
+        f"{FRAME_H} against the wavefront frame")
+    held["brute_kernel"].append(
+        f"phase 5d: brute-force frames of scenes 1 and 2 at {FRAME_W}x"
+        f"{FRAME_H} against the wavefront frame")
     log(f"main paths: launches {total}, wholeframe_kernel by mode "
         f"{by_mode}")
 
@@ -635,6 +791,106 @@ def main() -> int:
             f"{plain_ms:.2f} ms, attr_tab.index_select {lib_ms:.4f} ms; "
             f"bound {bound:.4f} ms ({by})")
 
+    # packet_kernel, occlusion_kernel and brute_kernel on each frame's
+    # primary rays (occlusion_kernel: the light rays of the primary hits),
+    # their plain versions on 4096 of them; the renderers' frames
+    k678, alt_ms, idle = {}, {}, {}
+    for which, (sc, lin, split, tab) in scenes.items():
+        o, d, t_hit, _, hit, lit_o, lit_d, dist, _ = queries[which]
+        tree = trees[which, True]
+        rows_g = brute_rows[which, True]
+        perm, counts = brute.sort_scene_by_type(sc.flat)
+        sub = torch.randint(0, o.shape[0], (N_RAYS,), generator=gen).to(dev)
+        lsub = torch.randint(0, lit_o.shape[0], (N_RAYS,),
+                             generator=gen).to(dev)
+        o_s, d_s = o[sub].contiguous(), d[sub].contiguous()
+        lo_s, ld_s = lit_o[lsub].contiguous(), lit_d[lsub].contiguous()
+        dist_s = dist[lsub].contiguous()
+        tbytes = sum(x.numel() * x.element_size() for x in (
+            tree.leaf_start, tree.leaf_count, tree.skip, tree.nodes,
+            tree.rows))
+        runs = {
+            "packet_kernel": (
+                lambda: packet.packet_hit(tree, o, d, False, True),
+                lambda: packet.packet_plain(tree, o_s, d_s, False, True),
+                lambda st: packet.packet_hit(tree, o, d, False, True,
+                                             stats=st),
+                o.shape[0], tbytes + o.shape[0] * 24, o.shape[0] * 8),
+            "occlusion_kernel": (
+                lambda: packet.occlusion(tree, lit_o, lit_d, dist, False,
+                                         True),
+                lambda: packet.occlusion_plain(tree, lo_s, ld_s, dist_s,
+                                               False, True),
+                lambda st: packet.occlusion(tree, lit_o, lit_d, dist, False,
+                                            True, stats=st),
+                lit_o.shape[0], tbytes + lit_o.shape[0] * 28,
+                lit_o.shape[0]),
+            "brute_kernel": (
+                lambda: brute.brute_hit(rows_g, counts, o, d, False, True),
+                lambda: brute.brute_plain(rows_g, counts, o_s, d_s, False,
+                                          True),
+                None, o.shape[0],
+                rows_g.numel() * 4 + o.shape[0] * 24, o.shape[0] * 8)}
+        for name, (run, plain, with_stats, n, in_b, out_b) in runs.items():
+            ms = cuda_ms(run, TIMED_FRAMES)
+            plain_ms = cuda_ms(plain, 1)
+            if with_stats is not None:
+                stats.zero_()
+                with_stats(stats)
+                other, node, tri = stats.tolist()
+                ops = (other * row_ops_other(sc.flat) + node * OPS_NODE_CULL
+                       + tri * OPS_ROW[3])
+                tests = dict(other_rows=other, nodes=node, triangles=tri)
+            else:
+                ops = n * sum(c * OPS_ROW[k] for k, c in enumerate(counts))
+                tests = dict(rows=n * sum(counts))
+            bound, by = bound_of(in_bytes=in_b, out_bytes=out_b, ops=ops)
+            k678.setdefault(name, {})[which] = dict(
+                ms=ms, plain_ms=plain_ms, plain_rays=N_RAYS, rays=n,
+                bound_ms=bound, bound_by=by, tests=tests)
+            log(f"scene {which}: {name} {ms:.3f} ms on {n} rays, plain "
+                f"{plain_ms:.1f} ms on {N_RAYS}; tests {tests}, bound "
+                f"{bound:.4f} ms ({by})")
+
+        ms = {}
+        for name in ("packet", "packet+occlusion", "brute"):
+            render_fn = brute.render if name == "brute" else packet.render
+            packet.USE_OCCLUSION = name == "packet+occlusion"
+            try:
+                ms[name] = cuda_ms(lambda: render_fn(
+                    sc.flat, lin, sc.camera, sc.light, cfg), TIMED_FRAMES)
+            finally:
+                packet.USE_OCCLUSION = False
+        # the packet frame without the square-block pixel remap: the rays
+        # in row order, the block shape patched for this one timing
+        block_shape = packet._block_shape
+        packet._block_shape = lambda tile: (1, tile)
+        try:
+            flat_order = packet.render(sc.flat, lin, sc.camera, sc.light, cfg)
+            ms["packet, rows in image order"] = cuda_ms(lambda: packet.render(
+                sc.flat, lin, sc.camera, sc.light, cfg), TIMED_FRAMES)
+        finally:
+            packet._block_shape = block_shape
+        check(bool((flat_order == alt_frames[which, "packet"]).all()),
+              "the pixel remap changed the packet frame")
+        ms["wavefront (once, host clock)"] = 1e3 * wave_s[which]
+        alt_ms[which] = ms
+        for name in ("packet", "brute"):
+            render_fn = brute.render if name == "brute" else packet.render
+            busy, ours = device_busy_ms(lambda: render_fn(
+                sc.flat, lin, sc.camera, sc.light, cfg))
+            idle[f"scene {which} {name}"] = dict(
+                device_busy_ms=busy, port_kernels_ms=ours,
+                frame_ms=ms[name],
+                idle_share=None if busy is None else 1 - busy / ms[name])
+            log(f"scene {which} {name} frame: kernels busy the card "
+                + ("(not measured: the profiler saw no device time)"
+                   if busy is None else f"{busy:.3f} of {ms[name]:.3f} ms "
+                   f"({ours:.3f} ms in csrc kernels), idle share "
+                   f"{1 - busy / ms[name]:.3f}"))
+        log(f"scene {which} frames {FRAME_W}x{FRAME_H}x{BOUNCES}: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+
     rows = [
         dict(name="wholeframe_kernel", route="cuda",
              source="raytracer_tpu_torch/csrc/raytrace.cu",
@@ -680,6 +936,22 @@ def main() -> int:
              per_scene={str(k): v for k, v in k5.items()},
              held_by=held["resolve_kernel"]),
     ]
+    for name, replaces in (
+            ("packet_kernel", "raytracer_tpu/render/pallas_bvh.py:169"),
+            ("occlusion_kernel", "raytracer_tpu/render/pallas_bvh.py:268"),
+            ("brute_kernel", "raytracer_tpu/render/pallas_kernel.py:95")):
+        top = k678[name][2]
+        rows.append(dict(
+            name=name, route="cuda",
+            source="raytracer_tpu_torch/csrc/raytrace.cu", replaces=replaces,
+            launches=total[name], max_abs_err=err[name], ms=top["ms"],
+            plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"], library_ms=None,
+            per_scene={str(k): v for k, v in k678[name].items()},
+            held_by=held[name]))
+    rows[-3]["frame_ms"] = {str(k): v for k, v in alt_ms.items()}
+    rows[-3]["frames_vs_wavefront_and_one_launch"] = alt_err
+    rows[-3]["frame_device_idle"] = idle
     log(f"done in {time.perf_counter() - T0:.1f}s")
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -698,6 +970,74 @@ def pixel_rays(cam_ops, camera, pix):
     o, d = cam_ops.get_rays(camera, div_rn(2.0 * x, FRAME_W) - 1.0,
                             1.0 - div_rn(2.0 * y, FRAME_H))
     return o.contiguous(), d.contiguous()
+
+
+def query_rays(cam_ops, camera, gen, dev):
+    """N_RAYS seeded rays: half from random points in random directions,
+    half primary rays through random pixels; a tenth parked, 8 with a NaN
+    origin and 8 with a zero direction (the shadow rays of ended lanes)."""
+    import torch
+    half = N_RAYS // 2
+    o = torch.rand(half, 3, generator=gen) * 80 - 40
+    d = torch.randn(half, 3, generator=gen)
+    d = d / d.norm(dim=1, keepdim=True)
+    o_s, d_s = pixel_rays(cam_ops, camera,
+                          torch.randint(0, FRAME_W * FRAME_H, (half,),
+                                        generator=gen).to(dev))
+    o = torch.cat([o.to(dev), o_s])
+    d = torch.cat([d.to(dev), d_s])
+    parked = torch.randperm(N_RAYS, generator=gen)[:N_RAYS // 10].to(dev)
+    o[parked] = 2e30
+    d[parked] = 0.5773502691896258
+    o[parked[:8], 1] = float("nan")
+    o[parked[8:16]] = 1e30
+    d[parked[8:16]] = 0.0
+    return o.contiguous(), d.contiguous()
+
+
+def typed_scene(dev):
+    """Spheres, a plane, a finite and a degenerate-basis wall and triangles
+    (one degenerate) in front of a default camera: every typed loop of
+    brute_kernel."""
+    from raytracer_tpu_torch.core import SceneBuilder
+    b = SceneBuilder()
+    b.add_sphere((0, -0.6, -4), 0.7)
+    b.add_sphere((1.2, 0.5, -6), 0.8)
+    b.add_plane((0, 0, -1), (0, 0, -9))
+    b.add_wall((-3, -2, -7), 2, 3, (-1, 0, -1))
+    b.add_wall((-20, 2, -20), 40, 40, (0, 1, 0))
+    b.add_triangle((-2.5, -1, -5), (-0.5, -1, -5), (-1.5, 1.2, -5))
+    b.add_triangle((1, -1, -3), (2, -1, -3.5), (1.5, 0, -3.2))
+    b.add_triangle((-1, 1, -5), (0, 1, -5), (-0.5, 1, -5))
+    return b.build(device=dev)
+
+
+def row_ops_other(flat):
+    """Mean f32 operations of a non-triangle row test over the scene's
+    spheres, planes and walls."""
+    counts = [int((flat.shape_type == k).sum()) for k in range(3)]
+    return sum(c * OPS_ROW[k] for k, c in enumerate(counts)) / max(
+        sum(counts), 1)
+
+
+def device_busy_ms(fn):
+    """The summed device time of the kernels of one call of ``fn`` (the
+    frame's launches run on one stream, so they do not overlap), and of
+    those of csrc/raytrace.cu (namespace rt), from torch.profiler; None
+    when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, getattr(e, "self_device_time_total", 0))
+               for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    us = sum(t for _, t in kernels)
+    ours = sum(t for k, t in kernels if "rt::" in k)
+    return (us / 1e3, ours / 1e3) if us > 0 else (None, None)
 
 
 def cuda_ms(fn, reps):

@@ -2,9 +2,10 @@
 
 The same fields and defaults as the JAX package's ``RenderConfig``, so a
 configuration maps one to one between the two packages. The TPU execution
-knobs (``ray_chunk``, ``tile_h``, ``tile_w``, ``interpret``) are kept as
-inert fields: the CUDA kernels take one thread per pixel or ray and have
-no tile or interpret mode.
+knobs are kept: the CUDA kernels take one thread per pixel or ray and have
+no tile or interpret mode, so ``interpret`` is inert; ``ray_chunk`` is the
+wavefront renderer's chunk of rays (as in the JAX ``lax.map``), and
+``tile_h * tile_w`` sizes the packet renderer's square pixel blocks.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ class RenderConfig:
     # Reflection-ray surface offset: always 1e-3.
     reflect_eps: float = 1e-3
 
-    # TPU execution knobs of the JAX package; inert here.
+    # TPU execution knobs of the JAX package (see the module docstring).
     ray_chunk: int = 8192
     tile_h: int = 16
     tile_w: int = 128

@@ -17,6 +17,19 @@
 // resolve_kernel replaces pallas_split.py::_resolve_kernel (978-1033): one
 //   thread per ray gathers its row of the attribute table (the TPU's loop
 //   over a tile's distinct ids is a per-lane gather here).
+// packet_kernel and occlusion_kernel replace raytracer_tpu/render/
+//   pallas_bvh.py::_packet_kernel (169-265, with _row_intersect 85-166)
+//   and _occlusion_kernel (268-355): one thread per ray walks the
+//   reference median tree alone (the TPU walks a packet and descends
+//   where any lane probes), with the leaf-box gate implied by entering
+//   only the leaves its own ray hits and t-culling on the nodes flagged
+//   cullable; occlusion_kernel returns at the first inner hit below max_t.
+// brute_kernel replaces raytracer_tpu/render/pallas_kernel.py::
+//   _closest_hit_kernel (95-243): one thread per ray runs four typed loops
+//   over every row in type-sorted order, optionally gated by each row's
+//   leaf box. Every thread of a warp reads the same row, so the read-only
+//   cache broadcasts it; staging the rows in shared memory is left for
+//   later.
 //
 // What bounds them on this card: the walks are bound by operations, not
 // bytes. The tables (0.25 MB for scene 1, 0.85 MB for scene 2) stay in L2
@@ -27,7 +40,10 @@
 // on neighbours of the sorted stream) so that they walk similar nodes.
 // Divergence between the lanes of a warp is what this design leaves on
 // the table. resolve_kernel does no walk: it moves 16 bytes in and 44
-// bytes out per ray and is bound by bytes.
+// bytes out per ray and is bound by bytes. brute_kernel is bound by
+// operations too (every ray tests every shape) and has no divergence but
+// the typed loops' early outs; packet_kernel's threads diverge most in
+// scene 2's leaf of 707 shapes.
 //
 // Each launcher returns cudaGetLastError() after the launch; the Python
 // wrapper raises if it is not 0. Launches go on the caller's stream and
@@ -160,6 +176,66 @@ resolve_kernel(const float* __restrict__ tab, int n_tab,
   for (int k = 0; k < 11; ++k) out[k * (long long)n + i] = a[k];
 }
 
+// o, d: (n, 3). packet_kernel: t and the local row of the closest hit.
+template <bool MT, bool CULL>
+__global__ void __launch_bounds__(BLOCK)
+packet_kernel(Tree s, const float* __restrict__ o,
+              const float* __restrict__ d, int n, float* __restrict__ t_out,
+              int* __restrict__ row_out, unsigned long long* stats) {
+  int i = blockIdx.x * BLOCK + (int)threadIdx.x;
+  if (i >= n) return;
+  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                   d[3 * i + 1], d[3 * i + 2]);
+  Counts c = {0u, 0u, 0u};
+  float t;
+  int row;
+  packet_walk<MT, CULL, false>(s, r, INF, c, t, row);
+  t_out[i] = t;
+  row_out[i] = row;
+  add_stats(stats, c);
+}
+
+// occlusion_kernel: 1 where some inner hit has t < max_t[i].
+template <bool MT, bool CULL>
+__global__ void __launch_bounds__(BLOCK)
+occlusion_kernel(Tree s, const float* __restrict__ o,
+                 const float* __restrict__ d,
+                 const float* __restrict__ max_t, int n,
+                 unsigned char* __restrict__ occ_out,
+                 unsigned long long* stats) {
+  int i = blockIdx.x * BLOCK + (int)threadIdx.x;
+  if (i >= n) return;
+  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                   d[3 * i + 1], d[3 * i + 2]);
+  Counts c = {0u, 0u, 0u};
+  float t;
+  int row;
+  occ_out[i] = packet_walk<MT, CULL, true>(s, r, max_t[i], c, t, row) ? 1
+                                                                      : 0;
+  add_stats(stats, c);
+}
+
+// rows: (n_sph + n_pl + n_wall + n_tri, ROW_EXT_W) in type-sorted order.
+struct TypeCounts {
+  int n[4];
+};
+
+template <bool MT, bool GATE>
+__global__ void __launch_bounds__(BLOCK)
+brute_kernel(const float* __restrict__ rows, TypeCounts counts,
+             const float* __restrict__ o, const float* __restrict__ d, int n,
+             float* __restrict__ t_out, int* __restrict__ row_out) {
+  int i = blockIdx.x * BLOCK + (int)threadIdx.x;
+  if (i >= n) return;
+  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                   d[3 * i + 1], d[3 * i + 2]);
+  float t;
+  int row;
+  brute_ray<MT, GATE>(rows, counts.n, r, t, row);
+  t_out[i] = t;
+  row_out[i] = row;
+}
+
 }  // namespace rt
 
 extern "C" {
@@ -258,6 +334,52 @@ int rt_resolve(const float* tab, int n_tab, const float* gid, const float* p,
   int grid = (n + rt::BLOCK - 1) / rt::BLOCK;
   rt::resolve_kernel<<<grid, rt::BLOCK, 0, (cudaStream_t)stream>>>(
       tab, n_tab, gid, p, n, out);
+  return (int)cudaGetLastError();
+}
+
+// max_t null: packet_kernel (t_out, row_out); else occlusion_kernel
+// (occ_out).
+int rt_packet(const int* leaf_start, const int* leaf_count, const int* skip,
+              const float* nodes, const float* rows, int m, const float* o,
+              const float* d, const float* max_t, int n, float* t_out,
+              int* row_out, unsigned char* occ_out, int use_mt, int t_cull,
+              unsigned long long* stats, void* stream) {
+  rt::Tree s = {leaf_start, leaf_count, skip, nodes, rows, m};
+  int grid = (n + rt::BLOCK - 1) / rt::BLOCK;
+  cudaStream_t st = (cudaStream_t)stream;
+#define RT_LAUNCH(MT, CULL)                                               \
+  do {                                                                    \
+    if (max_t == nullptr)                                                 \
+      rt::packet_kernel<MT, CULL><<<grid, rt::BLOCK, 0, st>>>(            \
+          s, o, d, n, t_out, row_out, stats);                             \
+    else                                                                  \
+      rt::occlusion_kernel<MT, CULL><<<grid, rt::BLOCK, 0, st>>>(         \
+          s, o, d, max_t, n, occ_out, stats);                             \
+  } while (0)
+  if (use_mt) {
+    if (t_cull) RT_LAUNCH(true, true); else RT_LAUNCH(true, false);
+  } else {
+    if (t_cull) RT_LAUNCH(false, true); else RT_LAUNCH(false, false);
+  }
+#undef RT_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+int rt_brute(const float* rows, int n_sph, int n_pl, int n_wall, int n_tri,
+             const float* o, const float* d, int n, float* t_out,
+             int* row_out, int use_mt, int gate, void* stream) {
+  rt::TypeCounts counts = {{n_sph, n_pl, n_wall, n_tri}};
+  int grid = (n + rt::BLOCK - 1) / rt::BLOCK;
+  cudaStream_t st = (cudaStream_t)stream;
+#define RT_LAUNCH(MT, GATE)                                               \
+  rt::brute_kernel<MT, GATE><<<grid, rt::BLOCK, 0, st>>>(                 \
+      rows, counts, o, d, n, t_out, row_out)
+  if (use_mt) {
+    if (gate) RT_LAUNCH(true, true); else RT_LAUNCH(true, false);
+  } else {
+    if (gate) RT_LAUNCH(false, true); else RT_LAUNCH(false, false);
+  }
+#undef RT_LAUNCH
   return (int)cudaGetLastError();
 }
 

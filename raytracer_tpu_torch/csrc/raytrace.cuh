@@ -1,12 +1,15 @@
-// Per-ray device code shared by the four kernels in raytrace.cu.
+// Per-ray device code shared by the kernels in raytrace.cu.
 //
 // Replaces the traversal that the JAX package's TPU kernels inline:
 // raytracer_tpu/render/pallas_split.py::_closest_pass (654-902) and its
 // helpers _pre_sphere (170), _pre_planewall (196), _leafbox_gate (152),
 // _tri_test (224) and _reduce_candidates (326); the bounce loop of
 // raytracer_tpu/render/wholeframe.py::_wholeframe_kernel (75-385) in its
-// raygen, emit_state and consume_state modes; and the per-lane bodies of
-// pallas_split.py::_fused_kernel (905-958) and _resolve_kernel (978-1033).
+// raygen, emit_state and consume_state modes; the per-lane bodies of
+// pallas_split.py::_fused_kernel (905-958) and _resolve_kernel (978-1033);
+// raytracer_tpu/render/pallas_bvh.py::_packet_kernel (169) with
+// _row_intersect (85) and _occlusion_kernel (268); and
+// raytracer_tpu/render/pallas_kernel.py::_closest_hit_kernel (95).
 //
 // The spec is the per-ray result, not the TPU's packet mechanics: a lane's
 // hit never depends on which other rays share its packet, so each thread
@@ -38,6 +41,11 @@ constexpr int T_GID = 18, T_RID = 27, T_EVX = 28, T_CV = 31, T_EWX = 32,
               T_CW = 35;
 // Triangle tests (config.py TRI_*).
 constexpr int TRI_RAW = 0, TRI_GRAM = 1, TRI_MT = 2;
+// Packed shape rows (geom/rowwise.py): 24 columns; the brute-force
+// renderer's rows add the shape's leaf box in columns 24-29
+// (render/brute.py). Shape types (core/scene.py).
+constexpr int ROW_W = 24, ROW_EXT_W = 30, R_B0X = 24;
+constexpr int SPHERE = 0, PLANE = 1, WALL = 2, TRIANGLE = 3;
 
 struct Tables {
   const int* leaf_start;   // (m,)
@@ -114,60 +122,109 @@ __device__ __forceinline__ bool pre_sphere(const float* p, const Ray& r,
   return (disc > 0.0f) && (t > 0.0f);
 }
 
-// _pre_planewall + _leafbox_gate: back-face n.d > 0 convention, wall
-// containment, degenerate basis -> infinite plane, reference leaf box.
-__device__ __forceinline__ bool pre_planewall(const float* p, const Ray& r,
-                                              float& t) {
-  float nx = ld(p + 5), ny = ld(p + 6), nz = ld(p + 7);
+// The tests below read rows whose columns keep one relative layout: a
+// plane normal n at n[0..2] with its offset at n[3]; and e1 = e[0..2], e2 =
+// e[3..5], p1 = e[6..8], s0 = e[9], s1 = e[10], then a wall's width and
+// height or a triangle's r11, r01, r00 at e[11..13]. In the packed rows
+// (geom/rowwise.py) and the pre-pass rows n = p + 5, e = p + 9; in the
+// triangle rows n = p + T_NX, e = p + T_E1X.
+
+// The plane family: t and the inner test (back-face n.d > 0, t > 0), and
+// the hit point o + tw * d with tw = t where inner, else 0.
+__device__ __forceinline__ bool plane_hit(const float* n, const Ray& r,
+                                          float& t, float& hx, float& hy,
+                                          float& hz) {
+  float nx = ld(n), ny = ld(n + 1), nz = ld(n + 2);
   float d_n = r.dx * nx + r.dy * ny + r.dz * nz;
   float o_n = r.ox * nx + r.oy * ny + r.oz * nz;
-  t = -(ld(p + 8) + o_n) / (d_n == 0.0f ? 1.0f : d_n);
-  bool v_pl = (d_n > 0.0f) && (t > 0.0f);
-  float tw = v_pl ? t : 0.0f;
-  float hx = r.ox + tw * r.dx;
-  float hy = r.oy + tw * r.dy;
-  float hz = r.oz + tw * r.dz;
-  float u = hx * ld(p + 9) + hy * ld(p + 10) + hz * ld(p + 11) - ld(p + 18);
-  float v = hx * ld(p + 12) + hy * ld(p + 13) + hz * ld(p + 14) - ld(p + 19);
-  bool outside = (u < 0.0f) || (u > ld(p + 20)) || (v < 0.0f) ||
-                 (v > ld(p + 21));
+  t = -(ld(n + 3) + o_n) / (d_n == 0.0f ? 1.0f : d_n);
+  bool inner = (d_n > 0.0f) && (t > 0.0f);
+  float tw = inner ? t : 0.0f;
+  hx = r.ox + tw * r.dx;
+  hy = r.oy + tw * r.dy;
+  hz = r.oz + tw * r.dz;
+  return inner;
+}
+
+// (h.e1 - s0, h.e2 - s1): a wall's (u, v), a barycentric triangle's
+// (d20, d21).
+__device__ __forceinline__ void project(const float* e, float hx, float hy,
+                                        float hz, float& a, float& b) {
+  a = hx * ld(e) + hy * ld(e + 1) + hz * ld(e + 2) - ld(e + 9);
+  b = hx * ld(e + 3) + hy * ld(e + 4) + hz * ld(e + 5) - ld(e + 10);
+}
+
+// A wall keeps a plane hit inside its width x height rectangle; a
+// degenerate basis (flag at e[14]) makes it an infinite plane.
+__device__ __forceinline__ bool wall_inside(const float* e, float hx,
+                                            float hy, float hz) {
+  float u, v;
+  project(e, hx, hy, hz, u, v);
+  bool outside = (u < 0.0f) || (u > ld(e + 11)) || (v < 0.0f) ||
+                 (v > ld(e + 12));
+  return (ld(e + 14) > 0.0f) || !outside;
+}
+
+// The barycentric test of a plane hit with the premultiplied ratios; a
+// degenerate triangle packs zeros and is always inside.
+__device__ __forceinline__ bool bary_inside(const float* e, float hx,
+                                            float hy, float hz) {
+  float d20, d21;
+  project(e, hx, hy, hz, d20, d21);
+  float v = ld(e + 11) * d20 - ld(e + 12) * d21;
+  float w = ld(e + 13) * d21 - ld(e + 12) * d20;
+  float u = 1.0f - v - w;
+  return !((u < 0.0f) || (v < 0.0f) || (w < 0.0f));
+}
+
+// Moller-Trumbore (double-sided), with its own t.
+__device__ __forceinline__ bool mt_test(const float* e, const Ray& r,
+                                        float& t) {
+  float e1x = ld(e), e1y = ld(e + 1), e1z = ld(e + 2);
+  float e2x = ld(e + 3), e2y = ld(e + 4), e2z = ld(e + 5);
+  float hcx = r.dy * e2z - r.dz * e2y;
+  float hcy = r.dz * e2x - r.dx * e2z;
+  float hcz = r.dx * e2y - r.dy * e2x;
+  float a = e1x * hcx + e1y * hcy + e1z * hcz;
+  bool ok = fabsf(a) >= 1e-5f;
+  float f = 1.0f / (ok ? a : 1.0f);
+  float smx = r.ox - ld(e + 6);
+  float smy = r.oy - ld(e + 7);
+  float smz = r.oz - ld(e + 8);
+  float u = f * (smx * hcx + smy * hcy + smz * hcz);
+  ok = ok && (u >= 0.0f) && (u <= 1.0f);
+  float qx = smy * e1z - smz * e1y;
+  float qy = smz * e1x - smx * e1z;
+  float qz = smx * e1y - smy * e1x;
+  float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
+  ok = ok && (v >= 0.0f) && (u + v <= 1.0f);
+  t = f * (e2x * qx + e2y * qy + e2z * qz);
+  return ok && (t > 0.0f);
+}
+
+// A box gate (gpu_shader.comp:364-377): the ray hits the box b[0..5].
+__device__ __forceinline__ bool box_gate(const float* b, const Ray& r) {
   float tmin, tmax;
-  slab(p + G_B0X, r, tmin, tmax);
-  bool gate = (tmax >= tmin) && (tmax > 0.0f);
-  return v_pl && ((ld(p + 23) > 0.0f) || !outside) && gate;
+  slab(b, r, tmin, tmax);
+  return (tmax >= tmin) && (tmax > 0.0f);
+}
+
+// _pre_planewall + _leafbox_gate: a plane or wall, gated by its reference
+// leaf box.
+__device__ __forceinline__ bool pre_planewall(const float* p, const Ray& r,
+                                              float& t) {
+  float hx, hy, hz;
+  return plane_hit(p + 5, r, t, hx, hy, hz) &&
+         wall_inside(p + 9, hx, hy, hz) && box_gate(p + G_B0X, r);
 }
 
 // _tri_test: raw barycentric, Gram-fused barycentric or Moller-Trumbore.
 template <int TRI>
 __device__ __forceinline__ bool tri_test(const float* p, const Ray& r,
                                          float& t) {
-  if (TRI == TRI_MT) {
-    float e1x = ld(p + T_E1X), e1y = ld(p + T_E1X + 1), e1z = ld(p + T_E1X + 2);
-    float e2x = ld(p + T_E2X), e2y = ld(p + T_E2X + 1), e2z = ld(p + T_E2X + 2);
-    float hcx = r.dy * e2z - r.dz * e2y;
-    float hcy = r.dz * e2x - r.dx * e2z;
-    float hcz = r.dx * e2y - r.dy * e2x;
-    float a = e1x * hcx + e1y * hcy + e1z * hcz;
-    bool ok = fabsf(a) >= 1e-5f;
-    float f = 1.0f / (ok ? a : 1.0f);
-    float smx = r.ox - ld(p + T_P1X);
-    float smy = r.oy - ld(p + T_P1X + 1);
-    float smz = r.oz - ld(p + T_P1X + 2);
-    float u = f * (smx * hcx + smy * hcy + smz * hcz);
-    ok = ok && (u >= 0.0f) && (u <= 1.0f);
-    float qx = smy * e1z - smz * e1y;
-    float qy = smz * e1x - smx * e1z;
-    float qz = smx * e1y - smy * e1x;
-    float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-    ok = ok && (v >= 0.0f) && (u + v <= 1.0f);
-    t = f * (e2x * qx + e2y * qy + e2z * qz);
-    return ok && (t > 0.0f);
-  }
-  float nx = ld(p + T_NX), ny = ld(p + T_NX + 1), nz = ld(p + T_NX + 2);
-  float d_n = r.dx * nx + r.dy * ny + r.dz * nz;
-  float o_n = r.ox * nx + r.oy * ny + r.oz * nz;
-  t = -(ld(p + T_PD) + o_n) / (d_n == 0.0f ? 1.0f : d_n);
-  bool inner = (d_n > 0.0f) && (t > 0.0f);
+  if (TRI == TRI_MT) return mt_test(p + T_E1X, r, t);
+  float hx, hy, hz;
+  bool inner = plane_hit(p + T_NX, r, t, hx, hy, hz);
   if (TRI == TRI_GRAM) {
     float evx = ld(p + T_EVX), evy = ld(p + T_EVX + 1), evz = ld(p + T_EVX + 2);
     float ewx = ld(p + T_EWX), ewy = ld(p + T_EWX + 1), ewz = ld(p + T_EWX + 2);
@@ -179,18 +236,7 @@ __device__ __forceinline__ bool tri_test(const float* p, const Ray& r,
     float w = o_ew + t * d_ew;
     return inner && (v >= 0.0f) && (w >= 0.0f) && ((v + w) <= 1.0f);
   }
-  float tw = inner ? t : 0.0f;
-  float hx = r.ox + tw * r.dx;
-  float hy = r.oy + tw * r.dy;
-  float hz = r.oz + tw * r.dz;
-  float d20 = hx * ld(p + T_E1X) + hy * ld(p + T_E1X + 1) +
-              hz * ld(p + T_E1X + 2) - ld(p + T_S0);
-  float d21 = hx * ld(p + T_E2X) + hy * ld(p + T_E2X + 1) +
-              hz * ld(p + T_E2X + 2) - ld(p + T_S1);
-  float v = ld(p + T_R11) * d20 - ld(p + T_R01) * d21;
-  float w = ld(p + T_R00) * d21 - ld(p + T_R01) * d20;
-  float u = 1.0f - v - w;
-  return inner && !((u < 0.0f) || (v < 0.0f) || (w < 0.0f));
+  return inner && bary_inside(p + T_E1X, hx, hy, hz);
 }
 
 // _closest_pass for one ray: the pre-pass over the n_other rows (the
@@ -536,6 +582,138 @@ __device__ __forceinline__ void resolve_ray(const float* tab, int n_tab,
   a[1] = is_s * (ry * inv) + (1.0f - is_s) * ld(row + 1);
   a[2] = is_s * (rz * inv) + (1.0f - is_s) * ld(row + 2);
   for (int k = 3; k < 11; ++k) a[k] = ld(row + k);
+}
+
+// ---- The packet-BVH and brute-force kernels' per-ray code -------------
+// Both test the 24-column packed rows (geom/rowwise.py::intersect_rows).
+
+// _row_intersect for one ray and one row, by the row's type: t and inner
+// as the JAX union test gives them (sphere (-b - sq) / 2a; plane, wall and
+// barycentric triangle t_pl; Moller-Trumbore its own t). Counts the test
+// in c.tri (triangles) or c.pre (other rows).
+template <bool MT>
+__device__ __forceinline__ bool row_intersect(const float* p, const Ray& r,
+                                              float& t, Counts& c) {
+  int typ = (int)ld(p);
+  if (typ != TRIANGLE) c.pre += 1;
+  if (typ == SPHERE) return pre_sphere(p, r, t);
+  if (typ == TRIANGLE) {
+    c.tri += 1;
+    if (MT) return mt_test(p + 9, r, t);
+  }
+  float hx, hy, hz;
+  bool v_pl = plane_hit(p + 5, r, t, hx, hy, hz);
+  if (typ == PLANE) return v_pl;
+  if (typ == WALL) return v_pl && wall_inside(p + 9, hx, hy, hz);
+  return typ == TRIANGLE && v_pl && bary_inside(p + 9, hx, hy, hz);
+}
+
+// The reference median tree: leaf_start/leaf_count/skip (m,), nodes (m,
+// NODE_W) with the cull flag in column 6, rows (K, ROW_W) in DFS-leaf
+// order.
+struct Tree {
+  const int* leaf_start;
+  const int* leaf_count;
+  const int* skip;
+  const float* nodes;
+  const float* rows;
+  int m;
+};
+
+// _packet_kernel / _occlusion_kernel for one ray: the skip-pointer walk,
+// entering a node when its box is hit and, with CULL, when the node is
+// not cullable or its entry tmin <= the best t (OCC: <= limit). A leaf's
+// rows are tested in order with the strict t < t_best update, so the
+// first row (DFS-leaf order) of the least t wins. Closest mode leaves
+// t_best (INF on a miss) and its local row (0 on a miss); OCC returns
+// true at the first inner hit with t < limit. A NaN ray fails every slab
+// compare and ends at the root. A ray whose direction is exactly zero
+// hits no shape (n.d, d x e2 and the sphere's b^2 - 4ac are 0 or NaN) but
+// every box (its slabs are +-inf), so it misses at once instead of
+// walking the whole tree: the Whitted loop's shadow rays of ended lanes
+// are such rays.
+template <bool MT, bool CULL, bool OCC>
+__device__ bool packet_walk(const Tree& s, const Ray& r, float limit,
+                            Counts& c, float& t_best, int& best) {
+  t_best = INF;
+  best = 0;
+  if (r.dx == 0.0f && r.dy == 0.0f && r.dz == 0.0f) return false;
+  int ptr = 0;
+  while (ptr < s.m) {
+    const float* b = s.nodes + ptr * NODE_W;
+    float tmin, tmax;
+    slab(b, r, tmin, tmax);
+    c.node += 1;
+    bool probe = (tmax >= tmin) && (tmax > 0.0f);
+    if (CULL) probe = probe && (ld(b + 6) == 0.0f ||
+                                tmin <= (OCC ? limit : t_best));
+    int cnt = ldi(s.leaf_count + ptr);
+    if (probe && cnt > 0) {
+      int st = ldi(s.leaf_start + ptr);
+      const float* p = s.rows + (long long)st * ROW_W;
+      for (int j = 0; j < cnt; ++j, p += ROW_W) {
+        float t;
+        bool inner = row_intersect<MT>(p, r, t, c);
+        if (OCC) {
+          if (inner && t < limit) return true;
+        } else if (inner && t < t_best) {
+          t_best = t;
+          best = st + j;
+        }
+      }
+      ptr = ldi(s.skip + ptr);
+    } else if (probe) {
+      ptr += 1;
+    } else {
+      ptr = ldi(s.skip + ptr);
+    }
+  }
+  return false;
+}
+
+// _closest_hit_kernel for one ray: every row in type-sorted order, one
+// loop per type (counts n[0..3] of spheres, planes, walls, triangles),
+// each hit gated by its row's leaf box with GATE. The first row of the
+// least t wins; t INF and row 0 on a miss.
+template <bool MT, bool GATE>
+__device__ void brute_ray(const float* rows, const int* n, const Ray& r,
+                          float& t_best, int& best) {
+  t_best = INF;
+  best = 0;
+  int i = 0;
+  const float* p = rows;
+  for (int e = n[0]; i < e; ++i, p += ROW_EXT_W) {
+    float t;
+    bool inner = pre_sphere(p, r, t);
+    if (GATE) inner = inner && box_gate(p + R_B0X, r);
+    if (inner && t < t_best) { t_best = t; best = i; }
+  }
+  for (int e = i + n[1]; i < e; ++i, p += ROW_EXT_W) {
+    float t, hx, hy, hz;
+    bool inner = plane_hit(p + 5, r, t, hx, hy, hz);
+    if (GATE) inner = inner && box_gate(p + R_B0X, r);
+    if (inner && t < t_best) { t_best = t; best = i; }
+  }
+  for (int e = i + n[2]; i < e; ++i, p += ROW_EXT_W) {
+    float t, hx, hy, hz;
+    bool inner = plane_hit(p + 5, r, t, hx, hy, hz) &&
+                 wall_inside(p + 9, hx, hy, hz);
+    if (GATE) inner = inner && box_gate(p + R_B0X, r);
+    if (inner && t < t_best) { t_best = t; best = i; }
+  }
+  for (int e = i + n[3]; i < e; ++i, p += ROW_EXT_W) {
+    float t;
+    bool inner;
+    if (MT) {
+      inner = mt_test(p + 9, r, t);
+    } else {
+      float hx, hy, hz;
+      inner = plane_hit(p + 5, r, t, hx, hy, hz) &&
+              bary_inside(p + 9, hx, hy, hz);
+    }
+    if (GATE) inner = inner && box_gate(p + R_B0X, r);
+    if (inner && t < t_best) { t_best = t; best = i; }
+  }
 }
 
 }  // namespace rt

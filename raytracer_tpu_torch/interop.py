@@ -1,8 +1,9 @@
 """Carry scene data across from the JAX package, as numpy arrays.
 
 ``from_numpy`` takes what the JAX package computed (a FlatScene's fields,
-a SplitScene's ``device_args()`` and counts, the ``_attr_table``, camera
-and light values), all as numpy arrays, and returns the port's objects on
+a SplitScene's ``device_args()`` and counts, the ``_attr_table``, the
+reference LinearBVH's arrays, camera and light values), all as numpy
+arrays, and returns the port's objects on
 a given device. Tests use it to feed both packages the same tables; it
 imports nothing of the JAX package.
 """
@@ -15,6 +16,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from raytracer_tpu_torch.accel.linearize import LinearBVH
 from raytracer_tpu_torch.core.scene import _FIELDS, FlatScene
 from raytracer_tpu_torch.core.types import Camera, Light
 from raytracer_tpu_torch.device import resolve_device
@@ -30,6 +32,7 @@ class Ported:
     attr_tab: Optional[torch.Tensor] = None
     camera: Optional[Camera] = None
     light: Optional[Light] = None
+    lin: Optional[LinearBVH] = None
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -44,7 +47,7 @@ def from_numpy(*, flat: Optional[dict] = None,
                rid_values: Sequence[int] = (),
                attr_tab: Optional[np.ndarray] = None,
                camera: Optional[dict] = None, light: Optional[dict] = None,
-               device=None) -> Ported:
+               lin: Optional[dict] = None, device=None) -> Ported:
     """Build the port's objects from numpy arrays.
 
     flat: FlatScene fields by name. split_args: (leaf_start, leaf_count,
@@ -54,7 +57,9 @@ def from_numpy(*, flat: Optional[dict] = None,
     past it are never read). camera: position, front, up, right, fov_deg,
     aspect, and optionally half_h (the image plane's half height as the
     other implementation computed it). light: position, base_color,
-    intensity."""
+    intensity. lin: the reference LinearBVH's bounds, leaf_start,
+    leaf_count, skip and perm; it stays on the host, as ``linearize``
+    returns it."""
     dev = resolve_device(device)
     out = Ported()
     if flat is not None:
@@ -89,4 +94,9 @@ def from_numpy(*, flat: Optional[dict] = None,
     if light is not None:
         out.light = Light(**{k: np.array(v) for k, v in light.items()},
                           device=dev)
+    if lin is not None:
+        out.lin = LinearBVH(**{
+            f: _t(lin[f], "cpu", torch.float32 if f == "bounds" else
+                  torch.int32)
+            for f in ("bounds", "leaf_start", "leaf_count", "skip", "perm")})
     return out

@@ -531,9 +531,9 @@ def _trace_frame(scene, split: SplitScene, camera, light,
     ys = div_rn(torch.arange(h, dtype=torch.float32, device=o.device), h)
     bg = torch.broadcast_to(shading.background(ys)[:, None, :], (h, w, 3))
     closest = make_closest_hit(split, cfg)
-    colors = whitted.trace(scene, light, closest, closest.fused_shadow,
-                           make_attr_resolver(cfg), o, d, bg.reshape(-1, 3),
-                           cfg)
+    colors = whitted.trace(scene, light, closest, o, d, bg.reshape(-1, 3),
+                           cfg, fused_fn=closest.fused_shadow,
+                           resolve_fn=make_attr_resolver(cfg))
     return colors.reshape(h, w, 3)
 
 

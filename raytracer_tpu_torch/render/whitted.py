@@ -3,10 +3,14 @@
 plus the parked-ray constants, the packed shading-attribute table and the
 bounce-sort key that the whole-frame hybrid shares.
 
-``trace`` is the per-bounce route of ``render()``: per bounce one
-closest-hit query (``fused_fn``: closest hit and shadow in one launch of
-``fused_kernel``), one attribute resolve (``resolve_fn``: a launch of
-``resolve_kernel``), then Phong, shadows and the reflection as tensor ops.
+``trace`` is the JAX function's bounce loop, shared by the renderers: per
+bounce one closest-hit query, the shading attributes of the hits, the
+shadow answer, then Phong, shadows and the reflection as tensor ops. The
+per-bounce route of ``render()`` passes ``fused_fn`` (closest hit and
+shadow in one launch of ``fused_kernel``) and ``resolve_fn`` (a launch of
+``resolve_kernel``); the packet, brute-force and wavefront renderers pass
+neither, and take the JAX function's row gather and closest-hit shadow
+ray (or, for the packet renderer's any-hit variant, ``occlusion_fn``).
 
 Quirks preserved (the JAX module's checklist): a miss adds attenuation x
 background and ends the ray; shadows darken x0.3; reflection only where
@@ -22,7 +26,8 @@ import functools
 import torch
 
 from raytracer_tpu_torch.core.scene import SPHERE, FlatScene
-from raytracer_tpu_torch.geom.direct import reflect
+from raytracer_tpu_torch.core.types import normalize
+from raytracer_tpu_torch.geom.direct import reflect, sqrt_rn
 from raytracer_tpu_torch.render import shading
 
 # Terminated lanes are parked on a ray that misses every box and shape at
@@ -92,18 +97,20 @@ def _where3(mask, a, b):
     return torch.where(mask[:, None], a, b)
 
 
-def trace(scene: FlatScene, light, closest_hit_fn, fused_fn, resolve_fn,
-          o: torch.Tensor, d: torch.Tensor, bg: torch.Tensor,
-          cfg) -> torch.Tensor:
+def trace(scene: FlatScene, light, closest_hit_fn, o: torch.Tensor,
+          d: torch.Tensor, bg: torch.Tensor, cfg, occlusion_fn=None,
+          fused_fn=None, resolve_fn=None) -> torch.Tensor:
     """Trace R rays to completion. o, d, bg: (R, 3). Returns (R, 3).
 
-    fused_fn(o, d, light_pos) -> (t, sid, hit, in_shadow): closest hit and
-    shadow answer in one launch. closest_hit_fn(o, d) -> (t, sid, hit):
-    the query when shadows are off. resolve_fn(attr_tab, gid, p) -> (n,
-    color, ka, kd, ks, kf, shininess): the shading attributes of the hits.
-    (The JAX function also takes an any-hit ``occlusion_fn``, a
-    closest-hit shadow ray and a row gather, behind TPU A/B switches; the
-    port keeps only the production route.)
+    closest_hit_fn(o, d) -> (t, sid, hit). occlusion_fn(o, d, max_t) ->
+    bool: an any-hit shadow query (occluded iff some inner hit is closer
+    than the light) in place of the closest-hit shadow ray. fused_fn(o, d,
+    light_pos) -> (t, sid, hit, in_shadow): closest hit and shadow answer
+    in one launch; takes precedence over both. resolve_fn(attr_tab, gid,
+    p) -> (n, color, ka, kd, ks, kf, shininess): the shading attributes of
+    the hits, in place of the row gather attr_tab[sid] with the sphere
+    normal from the hit point. (The JAX function's ``DEBUG_CONST_SHADE``
+    and kernel-attribute branches have no counterpart.)
 
     With cfg.sort_bounces the rays are re-packed once after bounce 1 by
     the bounce-sort key (a stable sort plus gathers, where the JAX package
@@ -112,7 +119,7 @@ def trace(scene: FlatScene, light, closest_hit_fn, fused_fn, resolve_fn,
     a bit and the background is composited once, at the end, in the
     original order."""
     light_pos, light_color = light.position, light.color
-    reflect_eps = cfg.reflect_eps
+    shadow_eps, reflect_eps = cfg.shadow_eps, cfg.reflect_eps
     n_rays = o.shape[0]
     dev = o.device
     accum = torch.zeros_like(o)
@@ -121,14 +128,13 @@ def trace(scene: FlatScene, light, closest_hit_fn, fused_fn, resolve_fn,
     missed = torch.zeros(n_rays, dtype=torch.bool, device=dev)
     ret = torch.arange(n_rays, device=dev)
     attr_tab = _attr_table(scene)
+    use_fused = fused_fn is not None and cfg.enable_shadows
 
     for i in range(cfg.max_bounces):
-        # closest hit and shadow answer (comp:466-480 / 562-580)
-        if cfg.enable_shadows:
+        if use_fused:
             t, sid, hit, in_shadow = fused_fn(o, d, light_pos)
         else:
             t, sid, hit = closest_hit_fn(o, d)
-            in_shadow = torch.zeros_like(hit)
 
         # miss: attenuated background, and the ray ends (comp:454-458)
         miss_now = alive & ~hit
@@ -139,8 +145,32 @@ def trace(scene: FlatScene, light, closest_hit_fn, fused_fn, resolve_fn,
         live = alive & hit
 
         p = o + t[:, None] * d
-        n, mat_color, k_a, k_d, k_s, k_f, shin = resolve_fn(
-            attr_tab, sid.to(torch.float32), p)
+        if resolve_fn is not None:
+            n, mat_color, k_a, k_d, k_s, k_f, shin = resolve_fn(
+                attr_tab, sid.to(torch.float32), p)
+        else:
+            row = attr_tab[sid.long()]      # one row gather
+            mat_color = row[:, 3:6]
+            k_a, k_d, k_s, k_f, shin = row[:, 6:11].unbind(1)
+            # plane family from the table; spheres from the hit point
+            # (1 / a correctly rounded root where JAX takes lax.rsqrt)
+            rel = p - row[:, 11:14]
+            inv = 1.0 / sqrt_rn(shading._dot(rel, rel)[:, None] + 1e-30)
+            is_sph = row[:, 14:15]
+            n = is_sph * (rel * inv) + (1.0 - is_sph) * row[:, 0:3]
+
+        # shadow ray (comp:466-480 / 562-580), unless fused_fn answered it
+        if not use_fused and cfg.enable_shadows:
+            s_o = (p + n * shadow_eps).contiguous()
+            s_d = normalize(light_pos - p, eps=1e-30).contiguous()
+            light_dist = torch.linalg.vector_norm(light_pos - p, dim=-1)
+            if occlusion_fn is not None:
+                in_shadow = occlusion_fn(s_o, s_d, light_dist)
+            else:
+                s_t, _, s_hit = closest_hit_fn(s_o, s_d)
+                in_shadow = s_hit & (s_t < light_dist)
+        elif not use_fused:
+            in_shadow = torch.zeros_like(hit)
 
         color = shading.phong(p, n, d, light_pos, light_color, mat_color,
                               k_a, k_d, k_s, shin, attenuate=True)

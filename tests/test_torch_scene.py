@@ -17,7 +17,7 @@ from raytracer_tpu_torch.accel import build_bvh, linearize
 from raytracer_tpu_torch.accel.linearize import shape_leaf_boxes
 from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.geom.direct import reflect
-from raytracer_tpu_torch.render import split_scene
+from raytracer_tpu_torch.render import brute, packet, split_scene, wavefront
 from raytracer_tpu_torch.render.split import render
 from raytracer_tpu_torch.scenes import generate_scene
 
@@ -126,21 +126,29 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 f"{path.relative_to(ROOT)} imports {name}"
 
 
-def test_render_without_a_device_needs_a_card():
+# The renderers' entry points: render(scene, bvh, camera, light, cfg).
+ENTRY_POINTS = {"split": render, "packet": packet.render,
+                "brute": brute.render, "wavefront": wavefront.render}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_render_without_a_device_needs_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is valid")
+    render_fn = ENTRY_POINTS[entry]
     sc = generate_scene(3, device="cpu")
     lin = linearize(build_bvh(sc.flat, sc.bvh_max_depth))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        render(sc.flat, lin, sc.camera, sc.light,
-               RenderConfig(width=8, height=6))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        render(sc.flat, lin, sc.camera, sc.light,
-               RenderConfig(width=8, height=6, sort_bounces=True))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        generate_scene(3)
-    img = render(sc.flat, lin, sc.camera, sc.light,
-                 RenderConfig(width=8, height=6), device="cpu")
+        render_fn(sc.flat, lin, sc.camera, sc.light,
+                  RenderConfig(width=8, height=6))
+    if entry == "split":
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            render(sc.flat, lin, sc.camera, sc.light,
+                   RenderConfig(width=8, height=6, sort_bounces=True))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            generate_scene(3)
+    img = render_fn(sc.flat, lin, sc.camera, sc.light,
+                    RenderConfig(width=8, height=6), device="cpu")
     assert img.shape == (6, 8, 3) and torch.isfinite(img).all()
 
 

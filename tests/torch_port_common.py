@@ -23,10 +23,12 @@ import jax.numpy as jnp
 import numpy as np
 
 from raytracer_tpu.accel import build_bvh, linearize
+from raytracer_tpu.accel.linearize import shape_leaf_boxes
 from raytracer_tpu.core import camera as cam_ops
 from raytracer_tpu.core.scene import SceneBuilder
 from raytracer_tpu.core.types import Light, Material
 from raytracer_tpu.render import split_scene, whitted
+from raytracer_tpu.render.reference import render as render_ref
 from raytracer_tpu.scenes import generate_scene
 from raytracer_tpu_torch import interop
 
@@ -34,10 +36,18 @@ CAMERA_FIELDS = ("position", "front", "up", "right", "fov_deg", "aspect")
 
 
 @functools.lru_cache(maxsize=None)
+def jax_scene_bvh(which: int):
+    """(Scene, reference LinearBVH) of the JAX package: what the packet,
+    brute-force and wavefront renderers take (the split tables, seconds of
+    host prep, are not built)."""
+    sc = generate_scene(which)
+    return sc, linearize(build_bvh(sc.flat, sc.bvh_max_depth))
+
+
+@functools.lru_cache(maxsize=None)
 def jax_scene(which: int):
     """(Scene, reference LinearBVH, SplitScene) of the JAX package."""
-    sc = generate_scene(which)
-    lin = linearize(build_bvh(sc.flat, sc.bvh_max_depth))
+    sc, lin = jax_scene_bvh(which)
     return sc, lin, split_scene.prepare(sc.flat, lin)
 
 
@@ -54,18 +64,25 @@ def light_numpy(light) -> dict:
             for f in ("position", "base_color", "intensity")}
 
 
-def port(flat, split, camera, light):
-    """A JAX FlatScene, its SplitScene, camera and light as the port's
-    objects on the CPU."""
+def lin_numpy(lin) -> dict:
+    return {f: np.asarray(getattr(lin, f))
+            for f in ("bounds", "leaf_start", "leaf_count", "skip", "perm")}
+
+
+def port(flat, split, camera, light, lin=None):
+    """A JAX FlatScene, its SplitScene (or None), camera and light (and
+    reference LinearBVH) as the port's objects on the CPU."""
     return interop.from_numpy(
         flat={f: np.asarray(getattr(flat, f))
               for f in flat.__dataclass_fields__},
-        split_args=[np.asarray(a) for a in split.device_args()],
-        m=split.m, n_other=split.n_other, n_sph=split.n_sph,
-        rid_values=split.rid_values,
+        split_args=None if split is None else
+        [np.asarray(a) for a in split.device_args()],
+        **({} if split is None else dict(
+            m=split.m, n_other=split.n_other, n_sph=split.n_sph,
+            rid_values=split.rid_values)),
         attr_tab=np.asarray(whitted._attr_table(flat)),
         camera=camera_numpy(camera), light=light_numpy(light),
-        device="cpu")
+        lin=None if lin is None else lin_numpy(lin), device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,6 +91,92 @@ def ported(which: int):
     objects on the CPU."""
     sc, _, split = jax_scene(which)
     return port(sc.flat, split, sc.camera, sc.light)
+
+
+@functools.lru_cache(maxsize=None)
+def ported_bvh(which: int):
+    """The JAX package's scene, reference tree, camera and light as the
+    port's objects on the CPU (no split tables)."""
+    sc, lin = jax_scene_bvh(which)
+    return port(sc.flat, None, sc.camera, sc.light, lin)
+
+
+def query_rays(sc, n: int = 512, seed: int = 0):
+    """n seeded f32 rays at a JAX scene: half from random points in random
+    directions, half primary rays through random pixels of a 24x18 frame;
+    then a tenth parked, 8 with a NaN component and 8 with a zero
+    direction (the shadow rays of lanes that ended: their distance to the
+    light overflows, so the normalised direction is 0)."""
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    o = rng.uniform(-10.0, 10.0, (n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    co, cd = (np.asarray(x).reshape(-1, 3)
+              for x in cam_ops.camera_rays(sc.camera, 24, 18))
+    pix = rng.integers(0, 24 * 18, n - half)
+    o[half:], d[half:] = co[pix], cd[pix]
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    parked = rng.permutation(n)[:n // 10]
+    o[parked], d[parked] = whitted.PARK_ORIGIN, whitted._PARK_DIR
+    o[parked[:8], 1] = np.nan
+    o[parked[8:16]] = rng.uniform(-2e30, 2e30, (8, 3))
+    d[parked[8:16]] = 0.0
+    return o, d
+
+
+@functools.lru_cache(maxsize=None)
+def oracle_opbyop(which: int, cfg):
+    """The JAX oracle's frame of scene ``which`` (``reference.render``
+    with the reference tree's leaf boxes, which the JAX tests hold every
+    renderer to), evaluated one operation at a time."""
+    sc, lin = jax_scene_bvh(which)
+    return op_by_op(render_ref, sc.flat, sc.camera, sc.light, cfg,
+                    leaf_boxes=shape_leaf_boxes(lin, sc.num_shapes))
+
+
+def held_lazily(port, jitted, opbyop, atol, rtol=0.0, axis=None,
+                allowed=0):
+    """The count of elements of ``port`` beyond tolerance through ``held``,
+    with ``opbyop()`` (a callable: the op-by-op JAX value costs seconds of
+    per-operation compiles) evaluated only where the jitted value alone
+    leaves more than ``allowed`` elements beyond; the op-by-op value
+    replaces the jitted one only where XLA's contracted FMAs moved it."""
+    beyond, _ = held(port, jitted, jitted, atol, rtol, axis)
+    if beyond.sum() <= allowed:
+        return int(beyond.sum())
+    beyond, _ = held(port, jitted, opbyop(), atol, rtol, axis)
+    return int(beyond.sum())
+
+
+def pixels_held(img, jitted, which: int, cfg, atol=1e-4):
+    """``held_lazily`` of a port frame of scene ``which`` against a jitted
+    JAX frame, pixels reduced over channels, at most 2 allowed, with the
+    op-by-op JAX oracle's frame as the op-by-op value."""
+    return held_lazily(img, jitted, lambda: oracle_opbyop(which, cfg), atol,
+                       axis=-1, allowed=2)
+
+
+@functools.lru_cache(maxsize=None)
+def typed_scene():
+    """A few shapes of every type (spheres, a plane, a finite and a
+    degenerate-basis wall, triangles; no reference scene has a plane) with
+    a camera, for the type-sorted brute-force query. Returns (flat,
+    reference LinearBVH, camera) of the JAX package, and the port's."""
+    b = SceneBuilder()
+    b.add_sphere((0, -0.6, -4), 0.7)
+    b.add_sphere((1.2, 0.5, -6), 0.8)
+    b.add_plane((0, 0, -1), (0, 0, -9))
+    b.add_wall((-3, -2, -7), 2, 3, (-1, 0, -1))
+    b.add_wall((-20, 2, -20), 40, 40, (0, 1, 0))
+    b.add_triangle((-2.5, -1, -5), (-0.5, -1, -5), (-1.5, 1.2, -5))
+    b.add_triangle((1, -1, -3), (2, -1, -3.5), (1.5, 0, -3.2))
+    b.add_triangle((-1, 1, -5), (0, 1, -5), (-0.5, 1, -5))   # degenerate
+    flat = b.build()
+    cam = cam_ops.from_euler(position=(0, 0, 0), fov_deg=60, aspect=4 / 3)
+    lin = linearize(build_bvh(flat, 3))
+    light = Light((0, 4, -2), (1, 1, 1), 6.0)
+    return (flat, lin, cam), port(flat, None, cam, light, lin)
 
 
 @functools.lru_cache(maxsize=None)
