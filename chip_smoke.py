@@ -7,22 +7,29 @@ card. Run from the repository root:
 It builds the CUDA kernels from csrc/ with nvcc and holds each kernel
 (wholeframe_kernel in its raygen, emit and consume modes,
 closest_hit_kernel, fused_kernel, resolve_kernel, packet_kernel,
-occlusion_kernel, brute_kernel) against its plain PyTorch version on the
-card. Then it drives the main paths at 800x600 with 3 bounces, each with
-every launch counter set to 0 just before it and read just after: the
-one-launch frame of scenes 1 and 2 with the closest-hit and occlusion
-queries; the sorted-continuation hybrid (render(sort_bounces=True)) of
-scenes 1 and 2, and scene 2 with second_sort; the per-bounce route
-(wholeframe.USE_WHOLEFRAME off) of scenes 1 and 2; the packet-BVH
-renderer (also with packet.USE_OCCLUSION), the brute-force renderer and
-the wavefront renderer of scenes 1 and 2, whose frames are held against
-the wavefront's. It times them with CUDA events and prints one JSON line
-of the kernels and, last, {"ok": true, "device": {...}}. Any failed check
-raises, so the script exits non-zero and prints no result. Without a CUDA
-device it exits non-zero at once.
+occlusion_kernel, brute_kernel, closest_attrs_kernel) against its plain
+PyTorch version on the card. Then it drives the main paths at 800x600
+with 3 bounces, each with every launch counter set to 0 just before it
+and read just after: the one-launch frame of scenes 1 and 2 with the
+closest-hit and occlusion queries; the sorted-continuation hybrid
+(render(sort_bounces=True)) of scenes 1 and 2, and scene 2 with
+second_sort; the per-bounce route (wholeframe.USE_WHOLEFRAME off) of
+scenes 1 and 2; the packet-BVH renderer (also with packet.USE_OCCLUSION),
+the brute-force renderer and the wavefront renderer of scenes 1 and 2,
+whose frames are held against the wavefront's; the USE_KERNEL_ATTRS
+route of scenes 1 and 2, held against the per-bounce frame; the
+differentiable route (render(differentiable=True)) of scene 1 with the
+loss and gradients of bench.py's grad leg, held against the same
+gradients through the plain closest hit; and 5 steps of
+diff.fit_scene_params through diff.make_kernel_renderer. It times them
+with CUDA events and prints one JSON line of the kernels and, last,
+{"ok": true, "device": {...}}. Any failed check raises, so the script
+exits non-zero and prints no result. Without a CUDA device it exits
+non-zero at once.
 """
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -74,6 +81,19 @@ OPS_NODE_CULL = OPS_NODE + 2
 # The packet and brute-force frames against the wavefront frame (the JAX
 # package's bars, tests/test_pallas_bvh.py:33 and tests/test_pallas.py:36).
 PACKET_ATOL, BRUTE_ATOL = 2e-5, 1e-4
+# The USE_KERNEL_ATTRS frame against the per-bounce frame: both shade the
+# same hits with the same formulas; only the shadow ray's direction is
+# rounded differently (fused_kernel multiplies by 1/dist, the trace
+# divides by PyTorch's vector norm), which may flip a grazing shadow. At
+# most this share of the pixels may differ by more than KERNEL_ATTRS_ATOL.
+KERNEL_ATTRS_ATOL = 1e-6
+KERNEL_ATTRS_MAX_FRACTION = 1e-4
+# The grad leg (bench.py::grad_split): gradients through the kernels
+# against the same computation through the plain closest hit, within
+# this share of the largest component (the backward's scatter-adds may
+# sum in any order).
+GRAD_RTOL_OF_MAX = 1e-4
+FIT_STEPS, FIT_LR = 5, 4.0
 
 
 def log(msg):
@@ -99,8 +119,12 @@ def main() -> int:
     from raytracer_tpu_torch.accel.linearize import shape_leaf_boxes
     from raytracer_tpu_torch.render import (brute, kernels, packet,
                                             split_scene, wavefront, whitted)
+    from raytracer_tpu_torch import diff as rt_diff
+    from raytracer_tpu_torch.render import split as split_mod
     from raytracer_tpu_torch.render import wholeframe as wf
     from raytracer_tpu_torch.render.split import (closest_hit,
+                                                  closest_hit_attrs,
+                                                  closest_hit_attrs_plain,
                                                   closest_hit_plain, fused,
                                                   fused_plain,
                                                   make_closest_hit, render,
@@ -146,12 +170,12 @@ def main() -> int:
     gen = torch.Generator().manual_seed(1234)
     names = ("wholeframe_kernel", "closest_hit_kernel", "fused_kernel",
              "resolve_kernel", "packet_kernel", "occlusion_kernel",
-             "brute_kernel")
+             "brute_kernel", "closest_attrs_kernel")
     err = {k: 0.0 for k in names}
     held = {k: [] for k in names}
     counters = dict(zip(names, (wf.wholeframe, closest_hit, fused, resolve,
                                 packet.packet_hit, packet.occlusion,
-                                brute.brute_hit)))
+                                brute.brute_hit, closest_hit_attrs)))
 
     # -- phase 3: closest_hit_kernel against closest_hit_plain ----------------
     t = time.perf_counter()
@@ -255,6 +279,38 @@ def main() -> int:
         f"phase 3c: the {FRAME_W}x{FRAME_H} primary rays' hit points and "
         "gids (misses as -1), scenes 1 and 2")
     log(f"phase 3c done in {time.perf_counter() - t:.1f}s")
+
+    # -- phase 3e: closest_attrs_kernel against closest_hit_attrs_plain -----
+    t = time.perf_counter()
+    for which, (sc, _, split, _) in scenes.items():
+        o_q, d_q = query_rays(cam_ops, sc.camera, gen, dev)
+        o = torch.cat([primary[which][0], o_q]).contiguous()
+        d = torch.cat([primary[which][1], d_q]).contiguous()
+        for mode in (1, 0, 2):
+            tk, gk, ak = closest_hit_attrs(split, o, d, mode)
+            tp, gp, ap = closest_hit_attrs_plain(split, o, d, mode)
+            t_err = (tk - tp).abs().max().item()
+            a_err = (ak - ap).abs().max().item()
+            g_bad = int((gk != gp).sum())
+            hit = tp < INF
+            log(f"phase 3e: scene {which} tri mode {mode}: {o.shape[0]} "
+                f"rays ({int(hit.sum())} hits): t max-abs {t_err:.3g}, gid "
+                f"differs on {g_bad}, attributes max-abs {a_err:.3g}")
+            check(torch.equal(tk, tp) and torch.equal(gk, gp)
+                  and torch.equal(ak, ap),
+                  "closest_attrs_kernel disagrees with "
+                  "closest_hit_attrs_plain")
+            check(bool((ak[:, ~hit] == 0).all()) and bool(
+                (ak[3:6, hit] > 0).any()), "miss attributes not zero, or "
+                "no coloured hit")
+            err["closest_attrs_kernel"] = max(err["closest_attrs_kernel"],
+                                              t_err, a_err)
+    held["closest_attrs_kernel"].append(
+        f"phase 3e: the {FRAME_W}x{FRAME_H} primary rays and {N_RAYS} "
+        "random and camera rays (a tenth parked, 8 NaN, 8 of zero "
+        "direction) x 3 triangle tests, scenes 1 and 2: t, gid and the 11 "
+        "attributes bit-exact")
+    log(f"phase 3e done in {time.perf_counter() - t:.1f}s")
 
     # -- phase 3d: packet, occlusion and brute kernels against their plain
     # versions ----------------------------------------------------------------
@@ -523,7 +579,7 @@ def main() -> int:
               "one-launch frame")
 
     # -- phase 5c: the per-bounce route at full width ------------------------
-    per_bounce_over = {}
+    per_bounce_over, pb_frames = {}, {}
     wf.USE_WHOLEFRAME = False
     try:
         for which in (1, 2):
@@ -535,6 +591,7 @@ def main() -> int:
             got = read()
             want = {k: 0 for k in names}
             want["fused_kernel"] = want["resolve_kernel"] = BOUNCES
+            pb_frames[which] = img
             diff = (img - frames[which]).abs().amax(-1)
             over = int((diff > 1e-4).sum())
             per_bounce_over[which] = over
@@ -606,6 +663,141 @@ def main() -> int:
     held["brute_kernel"].append(
         f"phase 5d: brute-force frames of scenes 1 and 2 at {FRAME_W}x"
         f"{FRAME_H} against the wavefront frame")
+
+    # -- phase 5e: the USE_KERNEL_ATTRS route at full width -----------------
+    attrs_err = {}
+    split_mod.USE_KERNEL_ATTRS = True
+    try:
+        for which in (1, 2):
+            sc, lin, split, _ = scenes[which]
+            t = time.perf_counter()
+            reset()
+            img = render(sc.flat, lin, sc.camera, sc.light, cfg, split=split)
+            torch.cuda.synchronize()
+            got = read()
+            want = {k: 0 for k in names}
+            want["closest_attrs_kernel"] = want["closest_hit_kernel"] = \
+                BOUNCES
+            diff_ = (img - pb_frames[which]).abs().amax(-1)
+            over = int((diff_ > KERNEL_ATTRS_ATOL).sum())
+            attrs_err[f"scene {which}"] = dict(
+                max_abs_vs_per_bounce=diff_.max().item(),
+                px_over_1e6_vs_per_bounce=over)
+            log(f"phase 5e: scene {which} USE_KERNEL_ATTRS {FRAME_W}x"
+                f"{FRAME_H}x{BOUNCES} in {time.perf_counter() - t:.2f}s: "
+                f"launches {got}; against the per-bounce frame max-abs "
+                f"{diff_.max().item():.3g}, {over} px > "
+                f"{KERNEL_ATTRS_ATOL:g} (bound "
+                f"{int(KERNEL_ATTRS_MAX_FRACTION * diff_.numel())})")
+            check(got == want, f"the kernel-attrs frame launched {got}, not "
+                  f"{want}")
+            check(bool(torch.isfinite(img).all())
+                  and over <= KERNEL_ATTRS_MAX_FRACTION * diff_.numel(),
+                  "the kernel-attrs frame differs from the per-bounce frame")
+    finally:
+        split_mod.USE_KERNEL_ATTRS = False
+    held["closest_attrs_kernel"].append(
+        f"phase 5e: USE_KERNEL_ATTRS frames of scenes 1 and 2 at {FRAME_W}x"
+        f"{FRAME_H} against the per-bounce frames")
+
+    # -- phase 5f: the grad leg (bench.py::grad_split) -----------------------
+    g_sc, g_lin, g_split, _ = scenes[1]
+    renderer = rt_diff.make_kernel_renderer(g_lin, g_split)
+    t = time.perf_counter()
+    reset()
+    with torch.no_grad():
+        target = renderer(g_sc.flat, g_sc.camera, g_sc.light, cfg)
+    torch.cuda.synchronize()
+    got = read()
+    want = {k: 0 for k in names}
+    want["closest_hit_kernel"] = 2 * BOUNCES
+    diff_ = (target - pb_frames[1]).abs().amax(-1)
+    over = int((diff_ > 1e-4).sum())
+    log(f"phase 5f: scene 1 differentiable {FRAME_W}x{FRAME_H}x{BOUNCES} in "
+        f"{time.perf_counter() - t:.2f}s: launches {got}; against the "
+        f"per-bounce frame max-abs {diff_.max().item():.3g}, {over} px > "
+        "1e-4")
+    check(got == want, f"the differentiable frame launched {got}, not "
+          f"{want}")
+    check(bool(torch.isfinite(target).all())
+          and over <= PER_BOUNCE_MAX_FRACTION * diff_.numel(),
+          "the differentiable frame differs from the per-bounce frame")
+
+    flat1 = g_sc.flat
+
+    def grad_loss(p):
+        s_ = flat1.replace(
+            sphere_center=torch.cat([p["center"][None],
+                                     flat1.sphere_center[1:]]),
+            mat_color=torch.cat([p["color"][None], flat1.mat_color[1:]]))
+        img_ = renderer(s_, g_sc.camera, g_sc.light, cfg)
+        return rt_diff.image_loss(img_, target)
+
+    p0 = {"center": (flat1.sphere_center[0] + 0.3).requires_grad_(True),
+          "color": (flat1.mat_color[0] * 0.8).requires_grad_(True)}
+
+    def loss_and_grads():
+        val = grad_loss(p0)
+        return (val,) + torch.autograd.grad(val, [p0["center"], p0["color"]])
+
+    reset()
+    val, g_center, g_color = loss_and_grads()
+    torch.cuda.synchronize()
+    got = read()
+    check(got == want, f"the grad leg launched {got}, not {want}")
+    grads = torch.cat([g_center, g_color])
+    closest_kernel = split_mod.closest_hit
+    split_mod.closest_hit = (lambda split_, o_, d_, mode_, max_t=None,
+                             stats=None: closest_hit_plain(split_, o_, d_,
+                                                           mode_, max_t))
+    try:
+        val_p, gc_p, gm_p = loss_and_grads()
+    finally:
+        split_mod.closest_hit = closest_kernel
+    grads_p = torch.cat([gc_p, gm_p])
+    g_err = (grads - grads_p).abs().max().item()
+    g_max = grads_p.abs().max().item()
+    log(f"phase 5f: loss {val.item():.6g} (plain closest {val_p.item():.6g});"
+        f" d/d centre {g_center.tolist()}, d/d colour {g_color.tolist()}; "
+        f"max-abs against the plain closest's gradients {g_err:.3g} (bar "
+        f"{GRAD_RTOL_OF_MAX:g} x {g_max:.3g})")
+    check(bool(torch.isfinite(grads).all()) and bool((grads != 0).any())
+          and bool(torch.isfinite(val)), "grad leg: gradients not finite "
+          "or all zero")
+    check(g_err <= GRAD_RTOL_OF_MAX * g_max
+          and abs(val.item() - val_p.item()) <= 1e-6 * abs(val_p.item()),
+          "grad leg: the kernel route disagrees with the plain closest")
+
+    # -- phase 5g: fit_scene_params through make_kernel_renderer -------------
+    init = {"sphere_center": torch.cat([g_sc.flat.sphere_center[:1] + 0.3,
+                                        g_sc.flat.sphere_center[1:]]),
+            "mat_color": torch.cat([g_sc.flat.mat_color[:1] * 0.8,
+                                    g_sc.flat.mat_color[1:]])}
+    fit_hist, fit_ms, fit_launches = [], [], []
+    params = init
+    for _ in range(FIT_STEPS):
+        reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, hist = rt_diff.fit_scene_params(
+            g_sc.flat, g_sc.camera, g_sc.light, cfg, target, params, steps=1,
+            lr=FIT_LR, renderer=renderer)
+        end.record()
+        torch.cuda.synchronize()
+        fit_ms.append(start.elapsed_time(end))
+        fit_launches.append(read()["closest_hit_kernel"])
+        fit_hist += hist
+    log(f"phase 5g: {FIT_STEPS} SGD steps (lr {FIT_LR:g}) of scene 1's "
+        f"sphere 0 centre and colour at {FRAME_W}x{FRAME_H}x{BOUNCES}: loss "
+        f"{fit_hist}; ms per step {[round(x, 3) for x in fit_ms]}; "
+        f"closest_hit_kernel launches per step {fit_launches}")
+    check(all(map(math.isfinite, fit_hist)) and fit_hist[-1] < fit_hist[0],
+          "the fit's loss did not fall")
+    check(fit_launches == [2 * BOUNCES] * FIT_STEPS,
+          "a fit step did not launch closest_hit_kernel once a query")
+    check(all(bool(torch.isfinite(v).all()) for v in params.values()),
+          "the fitted parameters are not finite")
     log(f"main paths: launches {total}, wholeframe_kernel by mode "
         f"{by_mode}")
 
@@ -891,6 +1083,72 @@ def main() -> int:
         log(f"scene {which} frames {FRAME_W}x{FRAME_H}x{BOUNCES}: "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
 
+    # closest_attrs_kernel on each frame's primary rays; the
+    # USE_KERNEL_ATTRS frames; the grad leg's forward and forward+backward
+    k4, ka_ms = {}, {}
+    for which, (sc, lin, split, tab) in scenes.items():
+        o, d = primary[which][0], primary[which][1]
+        n = o.shape[0]
+        ms = cuda_ms(lambda: closest_hit_attrs(split, o, d, cfg.tri_mode),
+                     TIMED_FRAMES)
+        plain_ms = cuda_ms(lambda: closest_hit_attrs_plain(
+            split, o, d, cfg.tri_mode), 1)
+        stats.zero_()
+        closest_hit_attrs(split, o, d, cfg.tri_mode, stats=stats)
+        # beyond the walk, a hit's normal costs what resolve's does
+        bound, _, by = bound_ms(stats, split, out_bytes=n * (8 + 44),
+                                in_bytes=table_bytes(split) + n * 24,
+                                extra_ops=n * OPS_RESOLVE)
+        k4[which] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, tests=stats.tolist())
+        split_mod.USE_KERNEL_ATTRS = True
+        try:
+            frame = (lambda: render(sc.flat, lin, sc.camera, sc.light, cfg,
+                                    split=split))
+            ka_ms[which] = cuda_ms(frame, TIMED_FRAMES)
+            busy, _ = device_busy_ms(frame)
+        finally:
+            split_mod.USE_KERNEL_ATTRS = False
+        k4[which]["frame_idle_share"] = (None if busy is None
+                                         else 1 - busy / ka_ms[which])
+        log(f"scene {which}: closest_attrs_kernel {ms:.3f} ms, "
+            f"closest_hit_attrs_plain {plain_ms:.1f} ms ({n} primary rays); "
+            f"tests {stats.tolist()}, bound {bound:.4f} ms ({by}); "
+            f"USE_KERNEL_ATTRS frame {ka_ms[which]:.3f} ms (per-bounce "
+            f"{pb_ms[which]:.3f}), device busy "
+            + ("not measured" if busy is None else f"{busy:.3f} ms"))
+
+    def forward():
+        with torch.no_grad():
+            return grad_loss(p0)
+
+    fwd_ms = cuda_ms(forward, TIMED_FRAMES // 4)
+    fwd_bwd_ms = cuda_ms(loss_and_grads, TIMED_FRAMES // 4)
+    top_fwd_bwd = top_device_ops(loss_and_grads, 8)
+    busy, ours = device_busy_ms(loss_and_grads)
+    log("grad leg: the device's busiest kernels of one fwd+bwd: "
+        + ("not measured (the profiler saw no device time)"
+           if top_fwd_bwd is None else
+           "; ".join(f"{k} {v:.3f} ms" for k, v in top_fwd_bwd)))
+    grad_leg = dict(fwd_ms=fwd_ms, fwd_bwd_ms=fwd_bwd_ms,
+                    bwd_over_fwd=fwd_bwd_ms / fwd_ms, loss=val.item(),
+                    grad_center=g_center.tolist(),
+                    grad_color=g_color.tolist(),
+                    max_abs_vs_plain_closest=g_err,
+                    launches_per_evaluation=2 * BOUNCES,
+                    top_device_ops_fwd_bwd_ms=top_fwd_bwd,
+                    fwd_bwd_device_busy_ms=busy,
+                    fwd_bwd_csrc_kernels_ms=ours,
+                    fwd_bwd_idle_share=None if busy is None
+                    else 1 - busy / fwd_bwd_ms)
+    log(f"grad leg (scene 1, {FRAME_W}x{FRAME_H}x{BOUNCES}): fwd_ms "
+        f"{fwd_ms:.3f}, fwd_bwd_ms {fwd_bwd_ms:.3f}, bwd_over_fwd "
+        f"{fwd_bwd_ms / fwd_ms:.3f}; fit {sum(fit_ms) / FIT_STEPS:.3f} ms "
+        "per step; fwd+bwd kernels busy the card "
+        + ("(not measured)" if busy is None else
+           f"{busy:.3f} ms ({ours:.3f} in csrc kernels), idle share "
+           f"{1 - busy / fwd_bwd_ms:.3f}"))
+
     rows = [
         dict(name="wholeframe_kernel", route="cuda",
              source="raytracer_tpu_torch/csrc/raytrace.cu",
@@ -952,6 +1210,21 @@ def main() -> int:
     rows[-3]["frame_ms"] = {str(k): v for k, v in alt_ms.items()}
     rows[-3]["frames_vs_wavefront_and_one_launch"] = alt_err
     rows[-3]["frame_device_idle"] = idle
+    rows.append(dict(
+        name="closest_attrs_kernel", route="cuda",
+        source="raytracer_tpu_torch/csrc/raytrace.cu",
+        replaces="raytracer_tpu/render/pallas_split.py:967",
+        launches=total["closest_attrs_kernel"],
+        max_abs_err=err["closest_attrs_kernel"], ms=k4[2]["ms"],
+        plain_ms=k4[2]["plain_ms"], bound_ms=k4[2]["bound_ms"],
+        bound_by=k4[2]["bound_by"], library_ms=None,
+        per_scene={str(k): v for k, v in k4.items()},
+        kernel_attrs_frame_ms={str(k): v for k, v in ka_ms.items()},
+        kernel_attrs_vs_per_bounce=attrs_err,
+        grad_leg=grad_leg,
+        fit=dict(steps=FIT_STEPS, lr=FIT_LR, loss=fit_hist, step_ms=fit_ms,
+                 closest_hit_launches_per_step=fit_launches),
+        held_by=held["closest_attrs_kernel"]))
     log(f"done in {time.perf_counter() - T0:.1f}s")
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -1020,11 +1293,10 @@ def row_ops_other(flat):
         sum(counts), 1)
 
 
-def device_busy_ms(fn):
-    """The summed device time of the kernels of one call of ``fn`` (the
-    frame's launches run on one stream, so they do not overlap), and of
-    those of csrc/raytrace.cu (namespace rt), from torch.profiler; None
-    when the profiler records no device time."""
+def kernel_times(fn):
+    """(kernel name, device ms) of each kernel of one call of ``fn``, from
+    torch.profiler's key_averages; empty when it records no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1032,12 +1304,29 @@ def device_busy_ms(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [(e.key, getattr(e, "self_device_time_total", 0))
-               for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    us = sum(t for _, t in kernels)
-    ours = sum(t for k, t in kernels if "rt::" in k)
-    return (us / 1e3, ours / 1e3) if us > 0 else (None, None)
+    times = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3)
+             for e in prof.key_averages()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return times if sum(t for _, t in times) > 0 else []
+
+
+def device_busy_ms(fn):
+    """The summed device time of the kernels of one call of ``fn`` (the
+    frame's launches run on one stream, so they do not overlap), and of
+    those of csrc/raytrace.cu (namespace rt); None when the profiler
+    records no device time."""
+    times = kernel_times(fn)
+    if not times:
+        return None, None
+    return (sum(t for _, t in times),
+            sum(t for k, t in times if "rt::" in k))
+
+
+def top_device_ops(fn, k):
+    """The ``k`` kernels of one call of ``fn`` with the most device time,
+    as (name, ms); None when the profiler records no device time."""
+    times = sorted(kernel_times(fn), key=lambda x: -x[1])
+    return [(name[:60], t) for name, t in times[:k]] or None
 
 
 def cuda_ms(fn, reps):
@@ -1068,14 +1357,15 @@ def bound_of(in_bytes, out_bytes, ops):
             "bytes" if by_bytes > by_ops else "operations")
 
 
-def bound_ms(stats, split, out_bytes, in_bytes):
-    """``bound_of`` for this run's walks, from their counted tests.
-    Returns (ms, operations, which of the two bounds it)."""
+def bound_ms(stats, split, out_bytes, in_bytes, extra_ops=0):
+    """``bound_of`` for this run's walks, from their counted tests, plus
+    ``extra_ops`` outside the walks. Returns (ms, operations, which of
+    the two bounds it)."""
     pre, node, tri = stats.tolist()
     n_pw = split.n_other - split.n_sph
     ops_pre = ((split.n_sph * OPS_SPHERE + n_pw * OPS_PLANEWALL)
                / max(split.n_other, 1))
-    ops = pre * ops_pre + node * OPS_NODE + tri * OPS_TRI
+    ops = pre * ops_pre + node * OPS_NODE + tri * OPS_TRI + extra_ops
     ms, by = bound_of(in_bytes, out_bytes, ops)
     return ms, ops, by
 

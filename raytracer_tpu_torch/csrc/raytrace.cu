@@ -14,6 +14,12 @@
 // fused_kernel replaces pallas_split.py::_fused_kernel (905-958): one
 //   thread per ray, the closest hit with normals and then the shadow walk
 //   toward the light, so a bounce of the per-bounce route is one launch.
+// closest_attrs_kernel replaces pallas_split.py::_split_kernel_attrs
+//   (967-975): one thread per ray, the closest hit (t, gid) with the 11
+//   shading attributes of the winning shape (normal, colour, ka, kd, ks,
+//   kf, shininess). The walk keeps the winner's row, whose material
+//   columns are read once after it (the TPU kernel carries 11 values
+//   through its loop); misses and parked rays give zero attributes.
 // resolve_kernel replaces pallas_split.py::_resolve_kernel (978-1033): one
 //   thread per ray gathers its row of the attribute table (the TPU's loop
 //   over a tile's distinct ids is a per-lane gather here).
@@ -161,6 +167,31 @@ fused_kernel(Tables s, const float* __restrict__ o,
   t_out[i] = t;
   gid_out[i] = (int)gid;
   sh_out[i] = in_shadow ? 1 : 0;
+  add_stats(stats, c);
+}
+
+// attrs: 11 rows of n floats (n(3), color(3), ka, kd, ks, kf,
+// shininess).
+template <int TRI>
+__global__ void __launch_bounds__(BLOCK)
+closest_attrs_kernel(Tables s, const float* __restrict__ o,
+                     const float* __restrict__ d, int n,
+                     float* __restrict__ t_out, int* __restrict__ gid_out,
+                     float* __restrict__ attrs,
+                     unsigned long long* stats) {
+  int i = blockIdx.x * BLOCK + (int)threadIdx.x;
+  if (i >= n) return;
+  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                   d[3 * i + 1], d[3 * i + 2]);
+  Counts c = {0u, 0u, 0u};
+  Hit h = closest_walk<TRI, true, true>(s, G_GID, T_GID, r, INF, c);
+  t_out[i] = h.t;
+  gid_out[i] = (int)h.id;
+  attrs[i] = h.nx;
+  attrs[(long long)n + i] = h.ny;
+  attrs[2LL * n + i] = h.nz;
+  for (int k = 0; k < N_MAT; ++k)
+    attrs[(3LL + k) * n + i] = h.mat != nullptr ? ld(h.mat + k) : 0.0f;
   add_stats(stats, c);
 }
 
@@ -318,6 +349,30 @@ int rt_fused(const int* leaf_start, const int* leaf_count, const int* skip,
 #define RT_LAUNCH(TRI)                                                    \
   rt::fused_kernel<TRI><<<grid, rt::BLOCK, 0, st>>>(                       \
       s, o, d, light, n, shadow_eps, t_out, gid_out, sh_out, stats)
+  switch (tri_mode) {
+    case rt::TRI_RAW: RT_LAUNCH(rt::TRI_RAW); break;
+    case rt::TRI_GRAM: RT_LAUNCH(rt::TRI_GRAM); break;
+    case rt::TRI_MT: RT_LAUNCH(rt::TRI_MT); break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RT_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+int rt_closest_attrs(const int* leaf_start, const int* leaf_count,
+                     const int* skip, const float* nodes, const float* pre,
+                     const float* tri, int m, int n_other, int n_sph,
+                     const float* o, const float* d, int n, float* t_out,
+                     int* gid_out, float* attrs, int tri_mode,
+                     unsigned long long* stats, void* stream) {
+  rt::Tables s = {leaf_start, leaf_count, skip, nodes, pre, tri,
+                  m, n_other, n_sph};
+  int grid = (n + rt::BLOCK - 1) / rt::BLOCK;
+  cudaStream_t st = (cudaStream_t)stream;
+#define RT_LAUNCH(TRI)                                                    \
+  rt::closest_attrs_kernel<TRI><<<grid, rt::BLOCK, 0, st>>>(               \
+      s, o, d, n, t_out, gid_out, attrs, stats)
   switch (tri_mode) {
     case rt::TRI_RAW: RT_LAUNCH(rt::TRI_RAW); break;
     case rt::TRI_GRAM: RT_LAUNCH(rt::TRI_GRAM); break;

@@ -6,7 +6,8 @@
 // _tri_test (224) and _reduce_candidates (326); the bounce loop of
 // raytracer_tpu/render/wholeframe.py::_wholeframe_kernel (75-385) in its
 // raygen, emit_state and consume_state modes; the per-lane bodies of
-// pallas_split.py::_fused_kernel (905-958) and _resolve_kernel (978-1033);
+// pallas_split.py::_fused_kernel (905-958), _split_kernel_attrs (967-975)
+// and _resolve_kernel (978-1033);
 // raytracer_tpu/render/pallas_bvh.py::_packet_kernel (169) with
 // _row_intersect (85) and _occlusion_kernel (268); and
 // raytracer_tpu/render/pallas_kernel.py::_closest_hit_kernel (95).
@@ -34,11 +35,14 @@ constexpr float BG_SPAN_B = (float)(1.0 - 0.1);
 
 // Row layouts (render/split_scene.py).
 constexpr int PRE_W = 40, TRI_W = 36, NODE_W = 8, ATTR_W = 15;
-constexpr int G_GID = 24, G_B0X = 25, G_RID = 39;
+constexpr int G_GID = 24, G_B0X = 25, G_MCR = 31, G_RID = 39;
 constexpr int T_NX = 0, T_PD = 3, T_E1X = 4, T_E2X = 7, T_P1X = 10;
 constexpr int T_S0 = 13, T_S1 = 14, T_R11 = 15, T_R01 = 16, T_R00 = 17;
-constexpr int T_GID = 18, T_RID = 27, T_EVX = 28, T_CV = 31, T_EWX = 32,
-              T_CW = 35;
+constexpr int T_GID = 18, T_MCR = 19, T_RID = 27, T_EVX = 28, T_CV = 31,
+              T_EWX = 32, T_CW = 35;
+// Both row layouts carry a shape's material as 8 consecutive columns
+// from *_MCR: colour rgb, ka, kd, ks, kf, shininess.
+constexpr int N_MAT = 8;
 // Triangle tests (config.py TRI_*).
 constexpr int TRI_RAW = 0, TRI_GRAM = 1, TRI_MT = 2;
 // Packed shape rows (geom/rowwise.py): 24 columns; the brute-force
@@ -62,8 +66,11 @@ struct Counts {
   unsigned pre, node, tri;
 };
 
+// mat: the winning row's material columns (MAT walks only; null on a
+// miss).
 struct Hit {
   float t, id, nx, ny, nz;
+  const float* mat;
 };
 
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
@@ -244,12 +251,16 @@ __device__ __forceinline__ bool tri_test(const float* p, const Ray& r,
 // triangle tree (probe tmin <= t_best, update on strict t < t_best).
 // t_init = limit makes it the shadow walk: in_shadow = t < limit.
 // pre_col / tri_col pick the id column (G_GID/T_GID, or the canonical
-// resolve id G_RID/T_RID).
-template <int TRI, bool NORMALS>
+// resolve id G_RID/T_RID). MAT also keeps a pointer to the winner's
+// material columns (_split_kernel_attrs): the earliest row wins exact
+// ties, as for the id, so one pointer replaces the JAX kernel's 8 carried
+// values.
+template <int TRI, bool NORMALS, bool MAT = false>
 __device__ Hit closest_walk(const Tables& s, int pre_col, int tri_col,
                             const Ray& r, float t_init, Counts& c) {
   Hit h;
   h.t = t_init; h.id = -1.0f; h.nx = 0.0f; h.ny = 0.0f; h.nz = 0.0f;
+  h.mat = nullptr;
   if (!(r.ox < 1e30f)) return h;   // parked lane: the miss result
 
   float best = INF;
@@ -266,6 +277,7 @@ __device__ Hit closest_walk(const Tables& s, int pre_col, int tri_col,
     const float* p = s.pre + bi * PRE_W;
     h.t = best;
     h.id = ld(p + pre_col);
+    if (MAT) h.mat = p + G_MCR;
     if (NORMALS) {
       if (bi < s.n_sph) {
         float px = r.ox + best * r.dx - ld(p + 1);
@@ -294,6 +306,7 @@ __device__ Hit closest_walk(const Tables& s, int pre_col, int tri_col,
         if (inner && t < h.t) {
           h.t = t;
           h.id = ld(p + tri_col);
+          if (MAT) h.mat = p + T_MCR;
           if (NORMALS) {
             h.nx = ld(p + T_NX); h.ny = ld(p + T_NX + 1); h.nz = ld(p + T_NX + 2);
           }

@@ -7,6 +7,8 @@ n.dir > 0 (src/shapes/plane.hpp:51).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # "No hit" distance; a Python float so kernels and plain versions share it.
@@ -37,6 +39,13 @@ def reflect(incident, normal):
     return incident - 2.0 * _dot(normal, incident)[..., None] * normal
 
 
+@functools.lru_cache(maxsize=None)
+def _up(device: torch.device) -> torch.Tensor:
+    """(0, 1, 0) on ``device``, made once: a host-to-device copy per call
+    would wait for the card (the per-step table refresh calls this)."""
+    return torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=device)
+
+
 def wall_basis(normal: torch.Tensor, eps: float = 1e-20):
     """In-plane basis of Wall::get_intersection (src/shapes/wall.hpp:52-55):
     u = normalize(cross(n, (0,1,0))), v = normalize(cross(n, u)).
@@ -46,8 +55,7 @@ def wall_basis(normal: torch.Tensor, eps: float = 1e-20):
     as an INFINITE plane. Reproduced without NaNs: a ``degenerate`` mask
     plus a zero basis, and callers treat degenerate walls as all-inside
     (scene 1's floor wall relies on this)."""
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
-                      device=normal.device)
+    up = _up(normal.device)
     u_raw = torch.linalg.cross(normal, torch.broadcast_to(up, normal.shape),
                                dim=-1)
     len2 = _dot(u_raw, u_raw)

@@ -20,7 +20,7 @@ from raytracer_tpu_torch.accel.linearize import LinearBVH
 from raytracer_tpu_torch.core.scene import _FIELDS, FlatScene
 from raytracer_tpu_torch.core.types import Camera, Light
 from raytracer_tpu_torch.device import resolve_device
-from raytracer_tpu_torch.render.split_scene import SplitScene
+from raytracer_tpu_torch.render.split_scene import REFIT_FIELDS, SplitScene
 
 
 @dataclasses.dataclass
@@ -45,6 +45,7 @@ def from_numpy(*, flat: Optional[dict] = None,
                m: Optional[int] = None, n_other: Optional[int] = None,
                n_sph: Optional[int] = None, n_tri: Optional[int] = None,
                rid_values: Sequence[int] = (),
+               refit: Optional[dict] = None,
                attr_tab: Optional[np.ndarray] = None,
                camera: Optional[dict] = None, light: Optional[dict] = None,
                lin: Optional[dict] = None, device=None) -> Ported:
@@ -54,7 +55,10 @@ def from_numpy(*, flat: Optional[dict] = None,
     skip, nodes, pre_rows, tri_rows) as ``SplitScene.device_args()``
     returns them, with ``m``, ``n_other``, ``n_sph`` and ``rid_values``
     (``n_tri`` defaults to the rows the tree's leaves reach; padding rows
-    past it are never read). camera: position, front, up, right, fov_deg,
+    past it are never read). refit: the SplitScene's refit metadata by
+    name (``split_scene.REFIT_FIELDS``: other_idx, tri_gids, tri_leaf_id,
+    leaf_lo, leaf_hi, node_lo, node_hi, n_leaf, m_pad), which the
+    ``update_*`` refreshers read. camera: position, front, up, right, fov_deg,
     aspect, and optionally half_h (the image plane's half height as the
     other implementation computed it). light: position, base_color,
     intensity. lin: the reference LinearBVH's bounds, leaf_start,
@@ -85,7 +89,11 @@ def from_numpy(*, flat: Optional[dict] = None,
             pre_rows=_t(pre, dev, torch.float32),
             tri_rows=_t(tri, dev, torch.float32),
             m=int(m), n_other=int(n_other), n_sph=int(n_sph),
-            n_tri=int(n_tri), rid_values=tuple(int(v) for v in rid_values))
+            n_tri=int(n_tri), rid_values=tuple(int(v) for v in rid_values),
+            **({} if refit is None else {
+                k: int(refit[k]) if k in ("n_leaf", "m_pad")
+                else _t(refit[k], dev, torch.int32)
+                for k in REFIT_FIELDS}))
     if attr_tab is not None:
         out.attr_tab = _t(attr_tab, dev, torch.float32)
     if camera is not None:

@@ -42,6 +42,7 @@ _SIGNATURES = {
                                 _F, _F, _I, _I, _I, _P, _P],
     "rt_closest_hit": _TABLES + [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P],
     "rt_fused": _TABLES + [_P, _P, _P, _I, _F, _P, _P, _P, _I, _P, _P],
+    "rt_closest_attrs": _TABLES + [_P, _P, _I, _P, _P, _P, _I, _P, _P],
     "rt_resolve": [_P, _I, _P, _P, _I, _P, _P],
     "rt_packet": [_P] * 5 + [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
     "rt_brute": [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],

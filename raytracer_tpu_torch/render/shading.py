@@ -11,6 +11,8 @@ reference quirk kept to match images.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from raytracer_tpu_torch.geom.direct import reflect, sqrt_rn
@@ -31,9 +33,16 @@ def background(ndc_like_y: torch.Tensor) -> torch.Tensor:
     """Vertical gradient mix(dark, skyblue, y/H) (gpu_shader.comp:436).
     ``ndc_like_y`` is texel_y / H in [0, 1); returns (..., 3)."""
     f = ndc_like_y.to(torch.float32)
-    a = torch.tensor(BG_DARK, dtype=torch.float32, device=f.device)
-    b = torch.tensor(BG_SKY, dtype=torch.float32, device=f.device)
+    a, b = _bg_colors(f.device)
     return a + (b - a) * f[..., None]
+
+
+@functools.lru_cache(maxsize=None)
+def _bg_colors(device: torch.device):
+    """The two background colours on ``device``, made once (a host-to-
+    device copy per frame would wait for the card)."""
+    return (torch.tensor(BG_DARK, dtype=torch.float32, device=device),
+            torch.tensor(BG_SKY, dtype=torch.float32, device=device))
 
 
 def phong(point, normal, view_dir, light_pos, light_color, mat_color,

@@ -20,7 +20,15 @@ wraps ``fused_kernel`` (``_fused_kernel``, pallas_split.py:905-958: the
 closest hit and the shadow ray in one launch) and ``resolve`` wraps
 ``resolve_kernel`` (``_resolve_kernel``, pallas_split.py:978-1033: the
 shading attributes of a hit). Their plain versions are ``fused_plain`` and
-``resolve_plain``.
+``resolve_plain``. ``closest_hit_attrs`` wraps ``closest_attrs_kernel``
+(``_split_kernel_attrs``, pallas_split.py:967-975: the closest hit with
+the 11 shading attributes of the winning shape), which the per-bounce
+route takes with ``USE_KERNEL_ATTRS``; its plain version is
+``closest_hit_attrs_plain``.
+
+``render(differentiable=True)`` takes the per-bounce route with the
+closest hit of ``diff.kernel_vjp.make_differentiable_closest``: kernel 2
+decides the hits, and t is re-derived in autograd from the scene.
 """
 
 from __future__ import annotations
@@ -37,14 +45,20 @@ from raytracer_tpu_torch.render import kernels, shading, whitted
 from raytracer_tpu_torch.render.whitted import (ATTR_W, PARK_ORIGIN,
                                                 _PARK_DIR as PARK_DIR)
 from raytracer_tpu_torch.render.split_scene import (
-    G_B0X, G_GID, G_RID, T_CV, T_CW, T_E1X, T_E2X, T_EVX, T_EWX, T_GID,
-    T_NX, T_P1X, T_PD, T_R00, T_R01, T_R11, T_RID, T_S0, T_S1, SplitScene,
-    prepare)
+    G_B0X, G_GID, G_MCR, G_MSH, G_RID, T_CV, T_CW, T_E1X, T_E2X, T_EVX,
+    T_EWX, T_GID, T_MCR, T_MSH, T_NX, T_P1X, T_PD, T_R00, T_R01, T_R11,
+    T_RID, T_S0, T_S1, SplitScene, prepare)
 
 # Rays per pass of the plain walk: bounds its (rays x leaf size) temporaries.
 PLAIN_CHUNK = 32768
 
 N_ATTRS = 11   # n(3), color(3), ka, kd, ks, kf, shininess
+
+# Take the closest hit with its shading attributes from
+# closest_attrs_kernel on the per-bounce route (no fused and no resolve
+# launch; kernel 2 answers the shadow rays), as the JAX package's switch
+# of the same name does. Off by default, as there.
+USE_KERNEL_ATTRS = False
 
 
 class Rays(NamedTuple):
@@ -229,23 +243,34 @@ def _walk_closest(split, r: Rays, t, gid, nrm, tri_mode, tri_col):
                 t[upd] = cmin[better]
                 gid[upd] = row[:, tri_col]
                 if nrm is not None:
-                    nrm[upd] = row[:, T_NX:T_NX + 3]
+                    nrm[upd] = row[:, _TRI_ATTR_COLS[:nrm.shape[1]]]
             nxt[sel] = skips[n]
         else:
             nxt[sel] = torch.where(probe, n + 1, skips[n])
 
 
+# Attribute columns of the winning row: normal, then colour, ka, kd, ks,
+# kf, shininess (the first 3 are the normal alone).
+_TRI_ATTR_COLS = [T_NX, T_NX + 1, T_NX + 2] + list(range(T_MCR, T_MSH + 1))
+_PRE_MAT_COLS = list(range(G_MCR, G_MSH + 1))
+
+
 def closest_pass_plain(split: SplitScene, o, d, *, tri_mode: int,
                        rid: bool = False, with_normals: bool = False,
+                       with_attrs: bool = False,
                        t_init: Optional[torch.Tensor] = None):
     """Plain version of the per-ray walk (``_closest_pass``): o, d are
     tuples of three (R,) tensors. Returns (t, id, normal (R, 3)) with id
     a float shape id (the canonical resolve id with ``rid``), -1 on miss.
-    ``t_init`` (default INF) turns it into the shadow walk."""
+    With ``with_attrs`` the third result is (R, N_ATTRS): the normal and
+    the material columns of the winning row, zero on a miss. ``t_init``
+    (default INF) turns it into the shadow walk."""
     ox, oy, oz = o
     t = torch.full_like(ox, INF) if t_init is None else t_init.clone()
     gid = torch.full_like(ox, -1.0)
-    nrm = torch.zeros(ox.shape + (3,), dtype=ox.dtype, device=ox.device)
+    with_normals = with_normals or with_attrs
+    nrm = torch.zeros(ox.shape + (N_ATTRS if with_attrs else 3,),
+                      dtype=ox.dtype, device=ox.device)
     live = torch.nonzero(ox < 1e30).squeeze(1)   # parked lanes miss
     for c0 in range(0, live.numel(), PLAIN_CHUNK):
         idx = live[c0:c0 + PLAIN_CHUNK]
@@ -267,6 +292,8 @@ def closest_pass_plain(split: SplitScene, o, d, *, tri_mode: int,
                 sph = torch.stack([px * inv, py * inv, pz * inv], 1)
                 n_pre = torch.where((bi < split.n_sph)[:, None], sph,
                                     rows[:, 5:8])
+                if with_attrs:
+                    n_pre = torch.cat([n_pre, rows[:, _PRE_MAT_COLS]], 1)
                 nc = torch.where(better[:, None], n_pre, nc)
             tc = torch.where(better, best, tc)
         _walk_closest(split, r, tc, gc, nc if with_normals else None,
@@ -483,6 +510,56 @@ def resolve(attr_tab: torch.Tensor, gid: torch.Tensor,
 resolve.launches = 0
 
 
+def closest_hit_attrs_plain(split: SplitScene, o: torch.Tensor,
+                            d: torch.Tensor, tri_mode: int):
+    """Plain version of ``closest_attrs_kernel``: o, d (R, 3) f32. Returns
+    (t, gid int32, attrs (N_ATTRS, R)): the closest hit as
+    ``closest_hit_plain`` gives it, and the normal, colour, ka, kd, ks, kf
+    and shininess of the winning shape. A sphere's normal is (p - c) /
+    sqrt(|p - c|^2 + 1e-30) at the hit point p = o + t d, correctly
+    rounded; other shapes carry their row's plane normal. Misses and
+    parked rays: t = INF, gid -1, zero attributes."""
+    oc = (o[:, 0], o[:, 1], o[:, 2])
+    dc = (d[:, 0], d[:, 1], d[:, 2])
+    t, gid, a = closest_pass_plain(split, oc, dc, tri_mode=tri_mode,
+                                   with_attrs=True)
+    return t, gid.to(torch.int32), a.t().contiguous()
+
+
+def closest_hit_attrs(split: SplitScene, o: torch.Tensor, d: torch.Tensor,
+                      tri_mode: int, stats: Optional[torch.Tensor] = None):
+    """Closest hit of R rays o, d (R, 3) f32 with the shading attributes
+    of the winning shape: (t, gid int32 (-1 on miss), attrs (N_ATTRS, R)
+    f32: n(3), color(3), ka, kd, ks, kf, shininess; zero on a miss). On a
+    CUDA tensor this launches ``closest_attrs_kernel``; on a CPU tensor it
+    runs ``closest_hit_attrs_plain``. ``stats`` as for ``closest_hit``."""
+    dev = o.device
+    if dev.type == "cpu":
+        return closest_hit_attrs_plain(split, o, d, tri_mode)
+    if dev.type != "cuda":
+        raise ValueError(f"closest_hit_attrs: unsupported device {dev}")
+    n = o.shape[0]
+    kernels.check_tensor("o", o, torch.float32, dev, (None, 3))
+    kernels.check_tensor("d", d, torch.float32, dev, (n, 3))
+    if stats is not None:
+        kernels.check_tensor("stats", stats, torch.int64, dev, (3,))
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    gid = torch.empty(n, dtype=torch.int32, device=dev)
+    attrs = torch.empty((N_ATTRS, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return t, gid, attrs
+    status = kernels.library().rt_closest_attrs(
+        *kernels.table_args(split, dev), o.data_ptr(), d.data_ptr(), n,
+        t.data_ptr(), gid.data_ptr(), attrs.data_ptr(), tri_mode,
+        None if stats is None else stats.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check_status("closest_attrs_kernel", status)
+    closest_hit_attrs.launches += 1
+    return t, gid, attrs
+
+
+closest_hit_attrs.launches = 0
+
+
 def make_attr_resolver(cfg: RenderConfig):
     """resolve(attr_tab, gid, p) -> (n, color, ka, kd, ks, kf, shininess),
     as ``pallas_split.make_attr_resolver``: gid (R,) f32 shape id (-1 on
@@ -496,10 +573,13 @@ def make_attr_resolver(cfg: RenderConfig):
 
 
 def make_closest_hit(split: SplitScene, cfg: RenderConfig):
-    """closest_hit(o, d) -> (t, sid, hit) plus .occlusion(o, d, max_t) and
-    .fused_shadow(o, d, light_pos) -> (t, sid, hit, in_shadow), as
-    ``pallas_split.make_closest_hit``: o, d (R, 3) f32 on the split's
-    device; sid is the int32 shape id (0 on miss), hit = t < INF."""
+    """closest_hit(o, d) -> (t, sid, hit) plus .occlusion(o, d, max_t),
+    .fused_shadow(o, d, light_pos) -> (t, sid, hit, in_shadow) and
+    .with_attrs(o, d) -> (t, sid, hit, (n, color, ka, kd, ks, kf,
+    shininess)), as ``pallas_split.make_closest_hit``: o, d (R, 3) f32 on
+    the split's device; sid is the int32 shape id (0 on miss), hit = t <
+    INF. ``with_attrs`` has ``provides_attrs = True``, ``.base`` (the
+    plain closest hit, for shadow rays) and ``.occlusion``."""
     tri_mode = cfg.tri_mode
 
     def closest(o, d):
@@ -515,32 +595,61 @@ def make_closest_hit(split: SplitScene, cfg: RenderConfig):
                                   cfg.shadow_eps)
         return t, gid.clamp_min(0), t < INF, in_shadow
 
+    def with_attrs(o, d):
+        t, gid, attrs = closest_hit_attrs(split, o, d, tri_mode)
+        return t, gid.clamp_min(0), t < INF, _attrs(attrs)
+
+    with_attrs.provides_attrs = True
+    with_attrs.base = closest
+    with_attrs.occlusion = occlusion
     closest.occlusion = occlusion
     closest.fused_shadow = fused_shadow
+    closest.with_attrs = with_attrs
     return closest
 
 
 def _trace_frame(scene, split: SplitScene, camera, light,
-                 cfg: RenderConfig) -> torch.Tensor:
+                 cfg: RenderConfig,
+                 differentiable: bool = False) -> torch.Tensor:
     """The per-bounce route: ``whitted.trace`` over image-order primary
-    rays, with the fused closest+shadow launch (the closest-hit launch
-    when shadows are off) and the attribute resolve."""
+    rays. By default with the fused closest+shadow launch (the closest-hit
+    launch when shadows are off) and the attribute resolve. With
+    ``USE_KERNEL_ATTRS``: the closest hit with its attributes, kernel 2
+    for the shadow rays. With ``differentiable``: kernel 2 for every
+    query, t re-derived in autograd, attributes by the row gather."""
     h, w = cfg.height, cfg.width
     o, d = camera_rays(camera, w, h)
     o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
     ys = div_rn(torch.arange(h, dtype=torch.float32, device=o.device), h)
     bg = torch.broadcast_to(shading.background(ys)[:, None, :], (h, w, 3))
     closest = make_closest_hit(split, cfg)
+    fused_fn, resolve_fn = closest.fused_shadow, make_attr_resolver(cfg)
+    if differentiable:
+        from raytracer_tpu_torch.diff.kernel_vjp import (
+            make_differentiable_closest)
+        occlusion = closest.occlusion
+        closest = make_differentiable_closest(scene, closest, cfg.use_mt)
+        closest.occlusion = occlusion
+        fused_fn = resolve_fn = None
+    elif USE_KERNEL_ATTRS:
+        closest = closest.with_attrs
+        fused_fn = resolve_fn = None
     colors = whitted.trace(scene, light, closest, o, d, bg.reshape(-1, 3),
-                           cfg, fused_fn=closest.fused_shadow,
-                           resolve_fn=make_attr_resolver(cfg))
+                           cfg, fused_fn=fused_fn, resolve_fn=resolve_fn)
     return colors.reshape(h, w, 3)
 
 
 def _render_impl(scene, split: SplitScene, camera, light,
-                 cfg: RenderConfig) -> torch.Tensor:
+                 cfg: RenderConfig,
+                 differentiable: bool = False) -> torch.Tensor:
     """The routing of ``pallas_split._render_impl`` (1202-1281):
 
+    - ``differentiable``: the per-bounce route with the differentiable
+      closest hit (kernel 2 for the hits and the shadow rays, t re-derived
+      in autograd, the row gather for the attributes);
+    - ``USE_KERNEL_ATTRS``: the per-bounce route with
+      ``closest_attrs_kernel`` for the hits and kernel 2 for the shadow
+      rays (no fused and no resolve launch);
     - ``wholeframe.USE_WHOLEFRAME`` on with ``sort_bounces`` and
       ``max_bounces >= 2``: the sorted-continuation hybrid
       (``wholeframe._render_blocks``: two launches of ``wholeframe_kernel``,
@@ -553,12 +662,14 @@ def _render_impl(scene, split: SplitScene, camera, light,
     mapping) and ``hybrid_ret_exact`` (an f32 pixel index below 2^24)
     conditions exist for its TPU tiles; the port has no tiles and carries
     an int32 pixel index, so it drops both, and with them the fed-rays
-    whole-frame fallback. The JAX package's A/B switches of the per-bounce
-    route (``USE_OCCLUSION``, ``USE_FUSED_SHADOW``, ``USE_RESOLVE_KERNEL``,
-    ``USE_KERNEL_ATTRS``, pallas_split.py:72-128) have no counterpart: the
-    port takes their production settings, and kernel 4 (attributes
-    carried through the walk, off there) is not ported."""
+    whole-frame fallback. Of the JAX package's A/B switches of the
+    per-bounce route (pallas_split.py:72-128) the port keeps
+    ``USE_KERNEL_ATTRS``; for ``USE_OCCLUSION``, ``USE_FUSED_SHADOW`` and
+    ``USE_RESOLVE_KERNEL`` it takes their production settings."""
     from raytracer_tpu_torch.render import wholeframe
+    if differentiable or USE_KERNEL_ATTRS:
+        return _trace_frame(scene, split, camera, light, cfg,
+                            differentiable=differentiable)
     if wholeframe.USE_WHOLEFRAME and (not cfg.sort_bounces
                                       or cfg.max_bounces >= 2):
         return wholeframe._render_blocks(scene, split, camera, light, cfg)
@@ -573,12 +684,17 @@ def render(scene, bvh, camera, light, cfg: RenderConfig,
     route, as ``_render_impl`` routes. ``bvh`` is the reference LinearBVH
     (exact leaf-box gates of the plane family); pass a prebuilt ``split``
     to skip host prep. ``device`` None means "cuda"; "cpu" runs the plain
-    versions."""
+    versions.
+
+    With ``differentiable`` the image carries gradients with respect to
+    the scene's, camera's and light's tensors (those with
+    ``requires_grad``): the kernel decides the hits, and gradients flow
+    through t re-derived per hit (``diff/kernel_vjp.py``), the normals
+    and the shading. The split's tables are used as given; when the
+    geometry moves, refresh them first (``split_scene.update_dynamic``,
+    as ``diff.make_kernel_renderer`` does)."""
     dev = resolve_device(device)
-    if differentiable:
-        raise NotImplementedError("differentiable rendering is not ported "
-                                  "yet")
     if split is None:
         split = prepare(scene, bvh, device=dev)
     return _render_impl(scene.to(dev), split.to(dev), camera.to(dev),
-                        light.to(dev), cfg)
+                        light.to(dev), cfg, differentiable=differentiable)

@@ -18,13 +18,20 @@ PARITY notes against the JAX package:
 - ``rid_values`` (the distinct canonical ids) is kept for parity; the
   port resolves materials by a plain gather ``attr_tab[rid]``, which is
   what the JAX kernel's static unroll over ``rid_values`` computes.
-- The per-frame refreshers (``update_*``) are not ported yet.
+
+The per-step refreshers ``update_pre_rows``, ``update_tri_rows`` and
+``update_dynamic`` repack the float tables from a changed scene as tensor
+code on the tables' device (no host round trip), with the tree's topology
+fixed and its boxes refit; ``prepare`` stores the refit metadata they
+read. ``update_materials`` (the host-side regrouping after a material
+edit) is not ported yet.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,12 +40,13 @@ from raytracer_tpu_torch.accel import bvh as bvh_mod
 from raytracer_tpu_torch.accel.linearize import (LinearBVH, linearize,
                                                  shape_leaf_boxes)
 from raytracer_tpu_torch.accel.sah import build_sah
-from raytracer_tpu_torch.core.scene import (SPHERE, TRIANGLE, FlatScene,
-                                            to_numpy)
+from raytracer_tpu_torch.core.scene import (SPHERE, TRIANGLE, WALL,
+                                            FlatScene, to_numpy)
 from raytracer_tpu_torch.device import resolve_device
 from raytracer_tpu_torch.geom import rowwise
-from raytracer_tpu_torch.geom.aabb import shape_aabbs, shape_centers
-from raytracer_tpu_torch.geom.direct import INF
+from raytracer_tpu_torch.geom.aabb import (shape_aabbs, shape_aabbs_device,
+                                           shape_centers)
+from raytracer_tpu_torch.geom.direct import INF, wall_basis
 
 # Leaf size of the binned-SAH triangle tree (the JAX package's default
 # builder and leaf size, so both build the same tree; any triangle tree is
@@ -97,7 +105,15 @@ class SplitScene:
     leaf_start/leaf_count/skip: (m,) int32 skip-pointer triangle tree;
     nodes: (m, 8) f32 box min xyz, max xyz, 2 zero columns;
     pre_rows: (n_other, PRE_W) f32, spheres first, then planes/walls;
-    tri_rows: (n_tri, TRI_W) f32 in DFS-leaf order."""
+    tri_rows: (n_tri, TRI_W) f32 in DFS-leaf order.
+
+    The refit metadata of the ``update_*`` refreshers (None where a
+    caller did not give it), as the JAX SplitScene keeps it:
+    other_idx (n_other,) int32, the shape id of each pre row; tri_gids
+    (max(n_tri, 1),) int32, of each triangle row; tri_leaf_id, the leaf
+    ordinal of each triangle row; leaf_lo/leaf_hi (n_leaf,) int32, each
+    leaf's row range; node_lo/node_hi (m_pad,) int32, the row range under
+    each node (lo = hi for padding); m_pad = m rounded up to 8."""
 
     leaf_start: torch.Tensor
     leaf_count: torch.Tensor
@@ -110,6 +126,15 @@ class SplitScene:
     n_sph: int
     n_tri: int
     rid_values: Tuple[int, ...]
+    other_idx: Optional[torch.Tensor] = None
+    tri_gids: Optional[torch.Tensor] = None
+    tri_leaf_id: Optional[torch.Tensor] = None
+    leaf_lo: Optional[torch.Tensor] = None
+    leaf_hi: Optional[torch.Tensor] = None
+    node_lo: Optional[torch.Tensor] = None
+    node_hi: Optional[torch.Tensor] = None
+    n_leaf: Optional[int] = None
+    m_pad: Optional[int] = None
     max_id: int = dataclasses.field(init=False)
 
     def __post_init__(self):
@@ -147,10 +172,61 @@ class SplitScene:
             return self
         moved = {f.name: getattr(self, f.name) for f in
                  dataclasses.fields(self) if f.init}
-        for k in ("leaf_start", "leaf_count", "skip", "nodes", "pre_rows",
-                  "tri_rows"):
-            moved[k] = moved[k].to(device)
+        for k, v in moved.items():
+            if isinstance(v, torch.Tensor):
+                moved[k] = v.to(device)
         return SplitScene(**moved)
+
+    def replace_tables(self, **tables) -> "SplitScene":
+        """A copy with the named float tables (nodes, pre_rows, tri_rows)
+        replaced. It skips the host-side validation of ``__post_init__``:
+        the refreshers change no tree pointer and no id, and copying the
+        int tables to the host each step would wait for the card."""
+        bad = set(tables) - {"nodes", "pre_rows", "tri_rows"}
+        if bad:
+            raise ValueError(f"replace_tables: not a float table: {bad}")
+        new = copy.copy(self)
+        for k, v in tables.items():
+            setattr(new, k, v)
+        return new
+
+
+REFIT_FIELDS = ("other_idx", "tri_gids", "tri_leaf_id", "leaf_lo",
+                "leaf_hi", "node_lo", "node_hi", "n_leaf", "m_pad")
+
+
+def _refit_metadata(lin, gids: np.ndarray, other_ids: np.ndarray,
+                   n_tri: int) -> dict:
+    """The static refit metadata of the JAX SplitScene (split_scene.py:
+    296-317) from the linearized triangle tree: the tree's topology stays
+    fixed, so each node's rows are the leaves in its DFS span [n,
+    skip[n])."""
+    starts = to_numpy(lin.leaf_start).astype(np.int64)
+    counts = to_numpy(lin.leaf_count).astype(np.int64)
+    skips = to_numpy(lin.skip).astype(np.int64)
+    m = starts.shape[0]
+    m_pad = max(((m + 7) // 8) * 8, 8)
+    leaf_nodes = np.nonzero(counts > 0)[0]
+    n_leaf = int(leaf_nodes.shape[0])
+    leaf_of_perm = np.zeros(max(n_tri, 1), np.int32)
+    for li, nd in enumerate(leaf_nodes):
+        leaf_of_perm[starts[nd]:starts[nd] + counts[nd]] = li
+    node_lo = np.zeros(m_pad, np.int32)
+    node_hi = np.zeros(m_pad, np.int32)
+    for nd in range(m):
+        in_span = leaf_nodes[(leaf_nodes >= nd) & (leaf_nodes < skips[nd])]
+        if in_span.size:
+            node_lo[nd] = starts[in_span[0]]
+            node_hi[nd] = starts[in_span[-1]] + counts[in_span[-1]]
+    return dict(
+        other_idx=other_ids.astype(np.int32),
+        tri_gids=(gids if n_tri else np.zeros(1)).astype(np.int32),
+        tri_leaf_id=leaf_of_perm,
+        leaf_lo=(starts[leaf_nodes] if n_leaf
+                 else np.zeros(1)).astype(np.int32),
+        leaf_hi=(starts[leaf_nodes] + counts[leaf_nodes] if n_leaf
+                 else np.ones(1)).astype(np.int32),
+        node_lo=node_lo, node_hi=node_hi, n_leaf=n_leaf, m_pad=m_pad)
 
 
 def _tables(scene: FlatScene, ref_bvh):
@@ -258,7 +334,8 @@ def _tables(scene: FlatScene, ref_bvh):
                 leaf_count=lin.leaf_count.numpy(), skip=lin.skip.numpy(),
                 nodes=nodes, pre_rows=pre, tri_rows=tri, m=m,
                 n_other=n_other, n_sph=n_sph, n_tri=n_tri,
-                rid_values=rid_values)
+                rid_values=rid_values,
+                **_refit_metadata(lin, gids, other_ids, n_tri))
 
 
 def prepare(scene: FlatScene, ref_bvh: LinearBVH, device=None) -> SplitScene:
@@ -268,7 +345,128 @@ def prepare(scene: FlatScene, ref_bvh: LinearBVH, device=None) -> SplitScene:
     placed on ``device`` (default: the scene's device)."""
     dev = scene.device if device is None else resolve_device(device)
     t = _tables(scene.to("cpu"), ref_bvh)
-    for k in ("leaf_start", "leaf_count", "skip", "nodes", "pre_rows",
-              "tri_rows"):
-        t[k] = torch.from_numpy(np.ascontiguousarray(t[k])).to(dev)
+    for k, v in t.items():
+        if isinstance(v, np.ndarray):
+            t[k] = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
     return SplitScene(**t)
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row sums of a * b over (R, 3), added left to right (the sums of
+    ``prepare``)."""
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
+def _need_refit(split: SplitScene) -> None:
+    if any(getattr(split, k) is None for k in REFIT_FIELDS):
+        raise ValueError("this SplitScene has no refit metadata: build it "
+                         "with prepare(), or pass refit= to "
+                         "interop.from_numpy")
+
+
+@torch.no_grad()
+def update_pre_rows(split: SplitScene, scene: FlatScene) -> SplitScene:
+    """Refresh the pre-pass rows from the current scene on the tables'
+    device, for moved non-triangle shapes: geometry and material columns
+    are repacked; a contained shape's leaf-box gate becomes its own
+    current AABB (an exact gate), while a degenerate-basis wall keeps its
+    stored reference-tree box (its visibility is that box). The shape ids
+    and the canonical resolve id (G_RID) are carried forward: material
+    regrouping is ``update_materials``'s work. The result is detached."""
+    if split.n_other == 0:
+        return split
+    _need_refit(split)
+    idx = split.other_idx.long()
+    rows24 = rowwise.pack_rows(scene)[idx]
+    amin, amax = shape_aabbs_device(scene)
+    _, _, wdeg = wall_basis(scene.plane_normal)
+    deg = (wdeg & (scene.shape_type == WALL))[idx][:, None]
+    old = split.pre_rows[:split.n_other]
+    new = torch.cat([
+        rows24,
+        old[:, G_GID:G_GID + 1],
+        torch.where(deg, old[:, G_B0X:G_B0X + 3], amin[idx]),
+        torch.where(deg, old[:, G_B1X:G_B1X + 3], amax[idx]),
+        scene.mat_color[idx],
+        scene.mat_ambient[idx, None],
+        scene.mat_diffuse[idx, None],
+        scene.mat_specular[idx, None],
+        scene.mat_fresnel[idx, None],
+        scene.mat_shininess[idx, None],
+        old[:, G_RID:G_RID + 1],
+        ], dim=1)
+    new = torch.cat([new, split.pre_rows[split.n_other:]])
+    return split.replace_tables(pre_rows=new.contiguous())
+
+
+@torch.no_grad()
+def update_tri_rows(split: SplitScene, scene: FlatScene) -> SplitScene:
+    """Refresh the triangle rows from the current scene (same row order)
+    and refit the triangle tree's node boxes bottom-up on the tables'
+    device: leaf boxes by a segment min/max over the rows, node boxes as
+    the union of the leaves under them, so the walk stays exact (any
+    containing tree is). The plane columns are whatever the scene
+    carries (the stale-plane quirk of an animation that does not refresh
+    them). T_RID is carried forward. The result is detached."""
+    if split.n_tri == 0:
+        return split
+    _need_refit(split)
+    gids = split.tri_gids.long()
+    p1, p2, p3 = scene.tri_p1[gids], scene.tri_p2[gids], scene.tri_p3[gids]
+    e1 = p2 - p1
+    e2 = p3 - p1
+    d00 = _dot3(e1, e1)
+    d01 = _dot3(e1, e2)
+    d11 = _dot3(e2, e2)
+    denom = d00 * d11 - d01 * d01
+    z = denom == 0
+    safe = torch.where(z, 1.0, denom)
+    s0 = _dot3(p1, e1)
+    s1 = _dot3(p1, e2)
+    r11 = torch.where(z, 0.0, d11 / safe)
+    r01 = torch.where(z, 0.0, d01 / safe)
+    r00 = torch.where(z, 0.0, d00 / safe)
+    col = lambda x: x[:, None]   # noqa: E731
+    tri = torch.cat([
+        scene.plane_normal[gids], col(scene.plane_d[gids]),
+        e1, e2, p1,
+        col(s0), col(s1), col(r11), col(r01), col(r00),
+        col(split.tri_gids.to(torch.float32)),
+        scene.mat_color[gids],
+        col(scene.mat_ambient[gids]), col(scene.mat_diffuse[gids]),
+        col(scene.mat_specular[gids]), col(scene.mat_fresnel[gids]),
+        col(scene.mat_shininess[gids]),
+        split.tri_rows[:split.n_tri, T_RID:T_RID + 1],
+        col(r11) * e1 - col(r01) * e2, col(r11 * s0 - r01 * s1),
+        col(r00) * e2 - col(r01) * e1, col(r00 * s1 - r01 * s0),
+        ], dim=1)
+    tri = torch.cat([tri, split.tri_rows[split.n_tri:]])
+
+    # leaf boxes: a segment min/max over the rows; node boxes: the union
+    # of the leaves whose row range lies in the node's
+    tmin = torch.minimum(torch.minimum(p1, p2), p3)
+    tmax = torch.maximum(torch.maximum(p1, p2), p3)
+    seg = split.tri_leaf_id[:split.n_tri].long()[:, None].expand(-1, 3)
+    lmin = torch.full((split.n_leaf, 3), torch.inf, device=tri.device)
+    lmax = torch.full((split.n_leaf, 3), -torch.inf, device=tri.device)
+    lmin = lmin.scatter_reduce(0, seg, tmin, "amin", include_self=False)
+    lmax = lmax.scatter_reduce(0, seg, tmax, "amax", include_self=False)
+    rows = split.nodes.shape[0]
+    lo, hi = split.node_lo[:rows], split.node_hi[:rows]
+    nonempty = (hi > lo)[:, None]
+    contained = ((split.leaf_lo[None, :] >= lo[:, None])
+                 & (split.leaf_hi[None, :] <= hi[:, None]) & nonempty)
+    c3 = contained[:, :, None]
+    nmin = torch.where(c3, lmin[None], INF).amin(1)
+    nmax = torch.where(c3, lmax[None], -INF).amax(1)
+    nodes = torch.cat([torch.where(nonempty, nmin, 0.0),
+                       torch.where(nonempty, nmax, 0.0),
+                       torch.zeros((rows, 2), device=tri.device)], dim=1)
+    return split.replace_tables(tri_rows=tri.contiguous(),
+                                nodes=nodes.contiguous())
+
+
+def update_dynamic(split: SplitScene, scene: FlatScene) -> SplitScene:
+    """Refresh both sides for an arbitrary animation or fit step: the
+    pre-pass rows, then the triangle rows with the tree's refit."""
+    return update_tri_rows(update_pre_rows(split, scene), scene)

@@ -8,9 +8,12 @@ bounce one closest-hit query, the shading attributes of the hits, the
 shadow answer, then Phong, shadows and the reflection as tensor ops. The
 per-bounce route of ``render()`` passes ``fused_fn`` (closest hit and
 shadow in one launch of ``fused_kernel``) and ``resolve_fn`` (a launch of
-``resolve_kernel``); the packet, brute-force and wavefront renderers pass
-neither, and take the JAX function's row gather and closest-hit shadow
-ray (or, for the packet renderer's any-hit variant, ``occlusion_fn``).
+``resolve_kernel``); with ``split.USE_KERNEL_ATTRS`` it passes a closest
+hit that provides the attributes (``closest_attrs_kernel``) and neither;
+the differentiable route and the packet, brute-force and wavefront
+renderers pass neither, and take the JAX function's row gather and
+closest-hit shadow ray (or, for the packet renderer's any-hit variant,
+``occlusion_fn``).
 
 Quirks preserved (the JAX module's checklist): a miss adds attenuation x
 background and ends the ray; shadows darken x0.3; reflection only where
@@ -102,15 +105,18 @@ def trace(scene: FlatScene, light, closest_hit_fn, o: torch.Tensor,
           fused_fn=None, resolve_fn=None) -> torch.Tensor:
     """Trace R rays to completion. o, d, bg: (R, 3). Returns (R, 3).
 
-    closest_hit_fn(o, d) -> (t, sid, hit). occlusion_fn(o, d, max_t) ->
-    bool: an any-hit shadow query (occluded iff some inner hit is closer
-    than the light) in place of the closest-hit shadow ray. fused_fn(o, d,
+    closest_hit_fn(o, d) -> (t, sid, hit); or, where it has
+    ``provides_attrs`` set, -> (t, sid, hit, (n, color, ka, kd, ks, kf,
+    shininess)), the shading attributes of the hits, and its ``.base``
+    (if any) answers the shadow rays. occlusion_fn(o, d, max_t) -> bool:
+    an any-hit shadow query (occluded iff some inner hit is closer than
+    the light) in place of the closest-hit shadow ray. fused_fn(o, d,
     light_pos) -> (t, sid, hit, in_shadow): closest hit and shadow answer
     in one launch; takes precedence over both. resolve_fn(attr_tab, gid,
     p) -> (n, color, ka, kd, ks, kf, shininess): the shading attributes of
     the hits, in place of the row gather attr_tab[sid] with the sphere
     normal from the hit point. (The JAX function's ``DEBUG_CONST_SHADE``
-    and kernel-attribute branches have no counterpart.)
+    branch has no counterpart.)
 
     With cfg.sort_bounces the rays are re-packed once after bounce 1 by
     the bounce-sort key (a stable sort plus gathers, where the JAX package
@@ -129,10 +135,16 @@ def trace(scene: FlatScene, light, closest_hit_fn, o: torch.Tensor,
     ret = torch.arange(n_rays, device=dev)
     attr_tab = _attr_table(scene)
     use_fused = fused_fn is not None and cfg.enable_shadows
+    provides_attrs = getattr(closest_hit_fn, "provides_attrs", False)
+    # shadow rays need no attributes: the plain closest hit where the
+    # attribute variant has one
+    shadow_fn = getattr(closest_hit_fn, "base", closest_hit_fn)
 
     for i in range(cfg.max_bounces):
         if use_fused:
             t, sid, hit, in_shadow = fused_fn(o, d, light_pos)
+        elif provides_attrs:
+            t, sid, hit, attrs = closest_hit_fn(o, d)
         else:
             t, sid, hit = closest_hit_fn(o, d)
 
@@ -145,11 +157,16 @@ def trace(scene: FlatScene, light, closest_hit_fn, o: torch.Tensor,
         live = alive & hit
 
         p = o + t[:, None] * d
-        if resolve_fn is not None:
+        if provides_attrs:
+            n, mat_color, k_a, k_d, k_s, k_f, shin = attrs
+        elif resolve_fn is not None:
             n, mat_color, k_a, k_d, k_s, k_f, shin = resolve_fn(
                 attr_tab, sid.to(torch.float32), p)
         else:
-            row = attr_tab[sid.long()]      # one row gather
+            # one row gather; index_select's backward adds the rows' grads
+            # with index_add_ (an index's backward sorts the indices, and
+            # serialises the long runs of one id: most rays hit one shape)
+            row = attr_tab.index_select(0, sid.long())
             mat_color = row[:, 3:6]
             k_a, k_d, k_s, k_f, shin = row[:, 6:11].unbind(1)
             # plane family from the table; spheres from the hit point
@@ -167,7 +184,7 @@ def trace(scene: FlatScene, light, closest_hit_fn, o: torch.Tensor,
             if occlusion_fn is not None:
                 in_shadow = occlusion_fn(s_o, s_d, light_dist)
             else:
-                s_t, _, s_hit = closest_hit_fn(s_o, s_d)
+                s_t, _, s_hit = shadow_fn(s_o, s_d)[:3]
                 in_shadow = s_hit & (s_t < light_dist)
         elif not use_fused:
             in_shadow = torch.zeros_like(hit)

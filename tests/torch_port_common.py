@@ -31,6 +31,7 @@ from raytracer_tpu.render import split_scene, whitted
 from raytracer_tpu.render.reference import render as render_ref
 from raytracer_tpu.scenes import generate_scene
 from raytracer_tpu_torch import interop
+from raytracer_tpu_torch.render.split_scene import REFIT_FIELDS
 
 CAMERA_FIELDS = ("position", "front", "up", "right", "fov_deg", "aspect")
 
@@ -69,6 +70,11 @@ def lin_numpy(lin) -> dict:
             for f in ("bounds", "leaf_start", "leaf_count", "skip", "perm")}
 
 
+def refit_numpy(split) -> dict:
+    """The JAX SplitScene's refit metadata, for ``interop.from_numpy``."""
+    return {f: np.asarray(getattr(split, f)) for f in REFIT_FIELDS}
+
+
 def port(flat, split, camera, light, lin=None):
     """A JAX FlatScene, its SplitScene (or None), camera and light (and
     reference LinearBVH) as the port's objects on the CPU."""
@@ -79,7 +85,7 @@ def port(flat, split, camera, light, lin=None):
         [np.asarray(a) for a in split.device_args()],
         **({} if split is None else dict(
             m=split.m, n_other=split.n_other, n_sph=split.n_sph,
-            rid_values=split.rid_values)),
+            rid_values=split.rid_values, refit=refit_numpy(split))),
         attr_tab=np.asarray(whitted._attr_table(flat)),
         camera=camera_numpy(camera), light=light_numpy(light),
         lin=None if lin is None else lin_numpy(lin), device="cpu")

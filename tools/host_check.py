@@ -7,12 +7,14 @@ The per-ray device code in raytracer_tpu_torch/csrc/raytrace.cuh is plain
 C++ apart from four CUDA names, so g++ compiles it as host code once those
 are defined. This script builds a small shared library of host loops over
 ``closest_walk`` (the walk of closest_hit_kernel, fused_kernel and
-wholeframe_kernel), ``packet_walk`` and ``brute_ray`` (the bodies of
-packet_kernel, occlusion_kernel and brute_kernel), runs it on seeded rays
+wholeframe_kernel; with the material pointer, of closest_attrs_kernel),
+``packet_walk`` and ``brute_ray`` (the bodies of packet_kernel,
+occlusion_kernel and brute_kernel), runs it on seeded rays
 of scenes 1-3 and of a scene with every shape type (random and camera
 rays, a tenth parked, some NaN, some of zero direction) for every
 template variant, and compares t, ids, rows
-and occlusion with ``closest_hit_plain``, ``packet_plain``,
+and occlusion with ``closest_hit_plain``, ``closest_hit_attrs_plain``,
+``packet_plain``,
 ``occlusion_plain`` and ``brute_plain`` bit for bit. It then prints the
 packet walk's node probes and row tests per primary ray of a 200x150
 frame (and per light ray of its hits), t-culling on and off.
@@ -39,7 +41,8 @@ from raytracer_tpu_torch.accel.linearize import shape_leaf_boxes  # noqa
 from raytracer_tpu_torch.core.camera import camera_rays, from_euler  # noqa
 from chip_smoke import typed_scene  # noqa: E402
 from raytracer_tpu_torch.render import brute, packet, split_scene  # noqa
-from raytracer_tpu_torch.render.split import closest_hit_plain  # noqa: E402
+from raytracer_tpu_torch.render.split import (  # noqa: E402
+    closest_hit_attrs_plain, closest_hit_plain)
 from raytracer_tpu_torch.scenes import generate_scene  # noqa: E402
 
 SHIM = r"""
@@ -94,7 +97,35 @@ static void closest_all(const rt::Tables& s, const float* o, const float* d,
   }
 }
 
+template <int TRI>
+static void attrs_all(const rt::Tables& s, const float* o, const float* d,
+                      int n, float* t_out, float* id_out, float* attrs) {
+  for (int i = 0; i < n; ++i) {
+    rt::Ray r = rt::make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                             d[3 * i + 1], d[3 * i + 2]);
+    rt::Counts c = {0u, 0u, 0u};
+    rt::Hit h = rt::closest_walk<TRI, true, true>(s, rt::G_GID, rt::T_GID, r,
+                                                  rt::INF, c);
+    t_out[i] = h.t;
+    id_out[i] = h.id;
+    const float a[3] = {h.nx, h.ny, h.nz};
+    for (int k = 0; k < 3; ++k) attrs[k * n + i] = a[k];
+    for (int k = 0; k < rt::N_MAT; ++k)
+      attrs[(3 + k) * n + i] = h.mat ? h.mat[k] : 0.0f;
+  }
+}
+
 extern "C" {
+void h_closest_attrs(const int* ls, const int* lc, const int* sk,
+                     const float* nodes, const float* pre, const float* tri,
+                     int m, int n_other, int n_sph, const float* o,
+                     const float* d, int n, float* t_out, float* id_out,
+                     float* attrs, int tri_mode) {
+  rt::Tables s = {ls, lc, sk, nodes, pre, tri, m, n_other, n_sph};
+  if (tri_mode == rt::TRI_RAW) attrs_all<rt::TRI_RAW>(s, o, d, n, t_out, id_out, attrs);
+  if (tri_mode == rt::TRI_GRAM) attrs_all<rt::TRI_GRAM>(s, o, d, n, t_out, id_out, attrs);
+  if (tri_mode == rt::TRI_MT) attrs_all<rt::TRI_MT>(s, o, d, n, t_out, id_out, attrs);
+}
 void h_closest(const int* ls, const int* lc, const int* sk, const float* nodes,
                const float* pre, const float* tri, int m, int n_other,
                int n_sph, const float* o, const float* d, int n, float* t_out,
@@ -190,6 +221,18 @@ def main() -> int:
                 bad += sum(diff)
                 print(f"scene {which} closest_walk tri mode {tri_mode}: t, "
                       f"gid differ on {diff}")
+                ak = torch.empty(11, o.shape[0])
+                lib.h_closest_attrs(*(ptr(x) for x in split.device_args()),
+                                    split.m, split.n_other, split.n_sph,
+                                    ptr(o), ptr(d), o.shape[0], ptr(tk),
+                                    ptr(gk), ptr(ak), tri_mode)
+                tp, gp, ap = closest_hit_attrs_plain(split, o, d, tri_mode)
+                diff = [int((tk != tp).sum()),
+                        int((gk.to(torch.int32) != gp).sum()),
+                        int((ak != ap).any(0).sum())]
+                bad += sum(diff)
+                print(f"scene {which} closest_walk with attributes tri mode "
+                      f"{tri_mode}: t, gid, attributes differ on {diff}")
             for use_mt in (False, True):
                 for t_cull in (False, True):
                     tree = packet.make_tree(lin, sc.flat, t_cull=t_cull)
