@@ -21,11 +21,13 @@ route of scenes 1 and 2, held against the per-bounce frame; the
 differentiable route (render(differentiable=True)) of scene 1 with the
 loss and gradients of bench.py's grad leg, held against the same
 gradients through the plain closest hit; and 5 steps of
-diff.fit_scene_params through diff.make_kernel_renderer. It times them
-with CUDA events and prints one JSON line of the kernels and, last,
-{"ok": true, "device": {...}}. Any failed check raises, so the script
-exits non-zero and prints no result. Without a CUDA device it exits
-non-zero at once.
+diff.fit_scene_params through diff.make_kernel_renderer. It times each
+kernel on the main paths' inputs by CUDA events over back-to-back calls
+(the call, which holds the host's issue time where that is longer) and by
+torch.profiler (the device), the frames by CUDA events, and prints one
+JSON line of the kernels and, last, {"ok": true, "device": {...}}. Any
+failed check raises, so the script exits non-zero and prints no result.
+Without a CUDA device it exits non-zero at once.
 """
 
 import json
@@ -54,6 +56,10 @@ N_RAYS = 4096
 N_PIXELS = 4096
 N_FUSED = 8192
 TIMED_FRAMES = 20
+# resolve_kernel and index_select take ~0.01-0.3 ms: more calls a timing
+RESOLVE_CALLS = 50
+# the spin kernels around a profiler window (kernel_times): ~1 us
+SPIN_CYCLES = 1000
 # The hybrid re-associates f32 sums only (the JAX package's bar,
 # tests/test_pallas_bvh.py:84-106).
 HYBRID_ATOL = 1e-6
@@ -258,26 +264,37 @@ def main() -> int:
 
     # -- phase 3c: resolve_kernel against resolve_plain -----------------------
     t = time.perf_counter()
-    primary = {}
+    primary, tabs16 = {}, {}
     for which, (sc, _, split, tab) in scenes.items():
+        tab16 = tabs16[which] = whitted._attr_table(sc.flat, padded=True)
+        check(torch.equal(tab16[:, :15], tab) and not tab16[:, 15].any(),
+              "the padded attribute table is not the table and a zero "
+              "column")
         o, d = cam_ops.camera_rays(sc.camera, FRAME_W, FRAME_H)
         o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
         t_hit, gid = closest_hit(split, o, d, RenderConfig().tri_mode)
         p = (o + t_hit[:, None] * d).contiguous()
         g = gid.to(torch.float32)
-        ak = resolve(tab, g, p)
-        ap = resolve_plain(tab, g, p)
-        e = (ak - ap).abs().max().item()
-        log(f"phase 3c: scene {which}: {g.numel()} primary hits "
-            f"({int((gid < 0).sum())} with gid -1): max-abs over the 11 "
-            f"attributes {e:.3g}")
-        check(bool((gid < 0).any()) and e <= 1e-6,
-              "resolve_kernel disagrees with resolve_plain")
-        err["resolve_kernel"] = max(err["resolve_kernel"], e)
+        # the frame's rays, and N_RAYS + 17 of them (a partial block and
+        # warp)
+        sub = torch.randint(0, g.numel(), (N_RAYS + 17,),
+                            generator=gen).to(dev)
+        for g_, p_ in ((g, p), (g[sub], p[sub].contiguous())):
+            ak = resolve(tab16, g_, p_)
+            ap = resolve_plain(tab16, g_, p_)
+            e = (ak - ap).abs().max().item()
+            log(f"phase 3c: scene {which}: {g_.numel()} primary hits "
+                f"({int((g_ < 0).sum())} with gid -1): max-abs over the 11 "
+                f"attributes {e:.3g}")
+            check(bool((g_ < 0).any()) and torch.equal(ak, ap)
+                  and torch.equal(ap, resolve_plain(tab, g_, p_)),
+                  "resolve_kernel disagrees with resolve_plain")
+            err["resolve_kernel"] = max(err["resolve_kernel"], e)
         primary[which] = (o, d, g, p)
     held["resolve_kernel"].append(
         f"phase 3c: the {FRAME_W}x{FRAME_H} primary rays' hit points and "
-        "gids (misses as -1), scenes 1 and 2")
+        f"gids (misses as -1), and {N_RAYS + 17} of them, scenes 1 and 2: "
+        "bit-exact")
     log(f"phase 3c done in {time.perf_counter() - t:.1f}s")
 
     # -- phase 3e: closest_attrs_kernel against closest_hit_attrs_plain -----
@@ -316,9 +333,10 @@ def main() -> int:
     # versions ----------------------------------------------------------------
     t = time.perf_counter()
     trees, brute_rows = {}, {}
+    n_q = N_RAYS + 17   # a partial block and warp
     for which, (sc, lin, _, _) in scenes.items():
-        o, d = query_rays(cam_ops, sc.camera, gen, dev)
-        u = torch.rand(N_RAYS, generator=gen).to(dev)
+        o, d = query_rays(cam_ops, sc.camera, gen, dev, n_q)
+        u = torch.rand(n_q, generator=gen).to(dev)
         perm, counts = brute.sort_scene_by_type(sc.flat)
         for use_mt in (False, True):
             t_by_cull = {}
@@ -350,7 +368,7 @@ def main() -> int:
             (t0_, r0_), (t1_, r1_) = t_by_cull[False], t_by_cull[True]
             flips = int(((t0_ != t1_) | (r0_ != r1_)).sum())
             log(f"phase 3d: scene {which} mt {int(use_mt)}: t_cull on and "
-                f"off differ on {flips} of {N_RAYS} rays")
+                f"off differ on {flips} of {n_q} rays")
             check(flips == 0, "t_cull on and off disagree")
             for gate in (False, True):
                 boxes = shape_leaf_boxes(lin, sc.num_shapes) if gate else None
@@ -369,9 +387,30 @@ def main() -> int:
     # brute_kernel's plane loop: no reference scene has a plane
     typed = typed_scene(dev)
     o, d = query_rays(cam_ops, cam_ops.from_euler(fov_deg=60, aspect=4 / 3,
-                                                  device=dev), gen, dev)
+                                                  device=dev), gen, dev, n_q)
     perm, counts = brute.sort_scene_by_type(typed)
     rows = brute.pack_rows_ext(typed, perm)
+    # packet_kernel's warp walk on every shape type (planes, degenerate
+    # walls: the nodes t-culling must not skip), all four variants
+    typed_lin = linearize(build_bvh(typed, 3))
+    for use_mt in (False, True):
+        by_cull = []
+        for t_cull in (False, True):
+            tree = packet.make_tree(typed_lin, typed, t_cull=t_cull)
+            tk, rk = packet.packet_hit(tree, o, d, use_mt, t_cull)
+            tp, rp = packet.packet_plain(tree, o, d, use_mt, t_cull)
+            by_cull.append((tk, rk))
+            log(f"phase 3d: typed scene mt {int(use_mt)} t_cull "
+                f"{int(t_cull)}: packet max-abs dt "
+                f"{(tk - tp).abs().max().item():.3g}, row agree "
+                f"{(rk == rp).float().mean().item():.6f} "
+                f"({int((tp < INF).sum())} hits)")
+            check(torch.equal(tk, tp) and torch.equal(rk, rp),
+                  "packet_kernel disagrees with packet_plain on the typed "
+                  "scene")
+        check(torch.equal(by_cull[0][0], by_cull[1][0])
+              and torch.equal(by_cull[0][1], by_cull[1][1]),
+              "t_cull on and off disagree on the typed scene")
     for use_mt in (False, True):
         for gate in (False, True):
             tk, rk = brute.brute_hit(rows, counts, o, d, use_mt, gate)
@@ -388,11 +427,12 @@ def main() -> int:
                   "scene")
     for name in ("packet_kernel", "occlusion_kernel", "brute_kernel"):
         held[name].append(
-            f"phase 3d: {N_RAYS} random and camera rays (a tenth parked, 8 "
+            f"phase 3d: {n_q} random and camera rays (a tenth parked, 8 "
             "NaN, 8 of zero direction) x barycentric and MT x "
             + ("gate on and off" if name == "brute_kernel" else
                "t_cull on and off") + ", scenes 1 and 2"
-            + (" and a scene with a plane" if name == "brute_kernel" else ""))
+            + ("" if name == "occlusion_kernel" else
+               " and a scene with a plane"))
     log(f"phase 3d done in {time.perf_counter() - t:.1f}s")
 
     # -- phase 4: wholeframe_kernel against wholeframe_plain ------------------
@@ -655,6 +695,10 @@ def main() -> int:
             check(got == want, f"the {name} frame launched {got}, not {want}")
             check(bool(torch.isfinite(img).all()) and vs_wave <= bar,
                   f"the {name} frame differs from the wavefront frame")
+            # packet_kernel and occlusion_kernel give each ray the plain
+            # walk's hit bit for bit, so these frames are the wavefront's
+            check(name == "brute" or vs_wave == 0,
+                  f"the {name} frame is not the wavefront frame")
             check(over <= bound,
                   f"the {name} frame differs from the one-launch frame")
     held["packet_kernel"].append(
@@ -817,6 +861,8 @@ def main() -> int:
         par = wf.make_params(sc.camera, sc.light)
         ms = cuda_ms(lambda: wf.wholeframe(split, tab, par, cfg),
                      TIMED_FRAMES)
+        dms = device_ms(lambda: wf.wholeframe(split, tab, par, cfg),
+                        TIMED_FRAMES)
         t = time.perf_counter()
         plain_ms = cuda_ms(lambda: wf.wholeframe_plain(split, tab, par, cfg),
                            1)
@@ -826,10 +872,11 @@ def main() -> int:
                                   out_bytes=FRAME_W * FRAME_H * 12,
                                   in_bytes=table_bytes(split)
                                   + tab.numel() * 4 + par.numel() * 4)
-        k1[which] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                         bound_by=by, tests=stats.tolist())
+        k1[which] = dict(ms=ms, device_ms=dms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, tests=stats.tolist())
         per_px = [round(x / (FRAME_W * FRAME_H), 1) for x in stats.tolist()]
-        log(f"scene {which}: wholeframe_kernel {ms:.3f} ms, wholeframe_plain "
+        log(f"scene {which}: wholeframe_kernel {ms:.3f} ms (device "
+            f"{fmt(dms)}), wholeframe_plain "
             f"{plain_ms:.1f} ms ({time.perf_counter() - t:.1f}s); tests per "
             f"pixel {per_px} (pre, node, triangle), {ops:.3g} ops -> bound "
             f"{bound:.4f} ms")
@@ -840,6 +887,8 @@ def main() -> int:
     o, d = queries[1][0], queries[1][1]
     k2_ms = cuda_ms(lambda: closest_hit(split, o, d, cfg.tri_mode),
                     TIMED_FRAMES)
+    k2_dms = device_ms(lambda: closest_hit(split, o, d, cfg.tri_mode),
+                       TIMED_FRAMES)
     k2_plain_ms = cuda_ms(lambda: closest_hit_plain(split, o, d,
                                                     cfg.tri_mode), 1)
     stats.zero_()
@@ -847,7 +896,8 @@ def main() -> int:
     k2_bound, _, k2_by = bound_ms(stats, split, out_bytes=o.shape[0] * 8,
                                   in_bytes=table_bytes(split)
                                   + o.numel() * 8)
-    log(f"closest_hit_kernel {k2_ms:.3f} ms, closest_hit_plain "
+    log(f"closest_hit_kernel {k2_ms:.3f} ms (device {fmt(k2_dms)}), "
+        f"closest_hit_plain "
         f"{k2_plain_ms:.1f} ms ({o.shape[0]} primary rays, scene 1); tests "
         f"{stats.tolist()}, bound {k2_bound:.4f} ms")
 
@@ -894,6 +944,8 @@ def main() -> int:
                                        state[0] < 1e30)
         e_ms = cuda_ms(lambda: wf.wholeframe(split, tab, par, cfg, bounces=1,
                                              emit_state=True), TIMED_FRAMES)
+        e_dms = device_ms(lambda: wf.wholeframe(
+            split, tab, par, cfg, bounces=1, emit_state=True), TIMED_FRAMES)
         g_ms = cuda_ms(glue, TIMED_FRAMES)
         glue_ms = dict(
             key=cuda_ms(lambda: whitted._bounce_sort_key(
@@ -908,6 +960,9 @@ def main() -> int:
         c_ms = cuda_ms(lambda: wf.wholeframe(split, tab, par, cfg,
                                              bounces=BOUNCES - 1, rays=rays,
                                              ret=ret), TIMED_FRAMES)
+        c_dms = device_ms(lambda: wf.wholeframe(
+            split, tab, par, cfg, bounces=BOUNCES - 1, rays=rays, ret=ret),
+            TIMED_FRAMES)
         n = FRAME_W * FRAME_H
         fixed = table_bytes(split) + tab.numel() * 4 + par.numel() * 4
         stats.zero_()
@@ -927,13 +982,14 @@ def main() -> int:
                             continuation_ms=c_ms, glue_parts_ms=glue_ms,
                             live_after_bounce_1=live)
         modes[which] = {
-            "raygen+emit": dict(ms=e_ms, bound_ms=e_bound, bound_by=e_by,
-                                tests=e_tests),
-            "consume": dict(ms=c_ms, bound_ms=c_bound, bound_by=c_by,
-                            tests=c_tests)}
-        log(f"scene {which} hybrid parts: emit {e_ms:.3f} ms (bound "
-            f"{e_bound:.4f}), re-pack + un-sort + composite {g_ms:.3f} ms, "
-            f"continuation {c_ms:.3f} ms (bound {c_bound:.4f}; {live} of "
+            "raygen+emit": dict(ms=e_ms, device_ms=e_dms, bound_ms=e_bound,
+                                bound_by=e_by, tests=e_tests),
+            "consume": dict(ms=c_ms, device_ms=c_dms, bound_ms=c_bound,
+                            bound_by=c_by, tests=c_tests)}
+        log(f"scene {which} hybrid parts: emit {e_ms:.3f} ms (device "
+            f"{fmt(e_dms)}, bound {e_bound:.4f}), re-pack + un-sort + "
+            f"composite {g_ms:.3f} ms, continuation {c_ms:.3f} ms (device "
+            f"{fmt(c_dms)}, bound {c_bound:.4f}; {live} of "
             f"{n} rays live after bounce 1); the glue alone: "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in glue_ms.items()))
     sc, lin, split, tab = scenes[2]
@@ -959,29 +1015,56 @@ def main() -> int:
         lp = sc.light.position.contiguous()
         ms = cuda_ms(lambda: fused(split, o, d, lp, cfg.tri_mode,
                                    shadow_eps), TIMED_FRAMES)
+        dms = device_ms(lambda: fused(split, o, d, lp, cfg.tri_mode,
+                                      shadow_eps), TIMED_FRAMES)
         plain_ms = cuda_ms(lambda: fused_plain(split, o, d, lp, cfg.tri_mode,
                                                shadow_eps), 1)
         stats.zero_()
         fused(split, o, d, lp, cfg.tri_mode, shadow_eps, stats=stats)
         bound, _, by = bound_ms(stats, split, out_bytes=n * 9,
                                 in_bytes=table_bytes(split) + n * 24 + 12)
-        k3[which] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                         bound_by=by, tests=stats.tolist())
-        log(f"scene {which}: fused_kernel {ms:.3f} ms, fused_plain "
+        k3[which] = dict(ms=ms, device_ms=dms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, tests=stats.tolist())
+        log(f"scene {which}: fused_kernel {ms:.3f} ms (device {fmt(dms)}), "
+            f"fused_plain "
             f"{plain_ms:.1f} ms ({n} primary rays); tests "
             f"{stats.tolist()}, bound {bound:.4f} ms")
 
+        # the kernel, and index_select of the rows (the gather alone) on
+        # the same padded table and on the 15-column one, each by CUDA
+        # events (the call) and by the profiler (the device)
         idx = g.clamp_min(0).long()
-        ms = cuda_ms(lambda: resolve(tab, g, p), TIMED_FRAMES)
-        plain_ms = cuda_ms(lambda: resolve_plain(tab, g, p), 1)
-        lib_ms = cuda_ms(lambda: tab.index_select(0, idx), TIMED_FRAMES)
-        bound, by = bound_of(in_bytes=n * 16 + tab.numel() * 4,
+        tab16 = tabs16[which]
+        ms = cuda_ms(lambda: resolve(tab16, g, p), RESOLVE_CALLS)
+        dms = device_ms(lambda: resolve(tab16, g, p), RESOLVE_CALLS)
+        hms = host_ms(lambda: resolve(tab16, g, p), RESOLVE_CALLS)
+        plain_ms = cuda_ms(lambda: resolve_plain(tab16, g, p), 1)
+        lib = {}
+        for name_, tab_ in (("padded", tab16), ("15 columns", tab)):
+            lib[name_] = dict(
+                ms=cuda_ms(lambda: tab_.index_select(0, idx), RESOLVE_CALLS),
+                device_ms=device_ms(lambda: tab_.index_select(0, idx),
+                                    RESOLVE_CALLS, csrc=False),
+                host_ms=host_ms(lambda: tab_.index_select(0, idx),
+                                RESOLVE_CALLS))
+        bound, by = bound_of(in_bytes=n * 16 + tab16.numel() * 4,
                              out_bytes=n * 44, ops=n * OPS_RESOLVE)
-        k5[which] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound, bound_by=by)
-        log(f"scene {which}: resolve_kernel {ms:.4f} ms, resolve_plain "
-            f"{plain_ms:.2f} ms, attr_tab.index_select {lib_ms:.4f} ms; "
-            f"bound {bound:.4f} ms ({by})")
+        # the library's yardstick: the faster of the two gathers
+        best = min(lib, key=lambda k: lib[k]["ms"])
+        k5[which] = dict(ms=ms, device_ms=dms, host_ms=hms,
+                         plain_ms=plain_ms,
+                         library_ms=lib[best]["ms"],
+                         library_device_ms=lib[best]["device_ms"],
+                         library_table=best,
+                         index_select=lib, bound_ms=bound, bound_by=by)
+        log(f"scene {which}: resolve_kernel {ms:.4f} ms (device "
+            f"{fmt(dms, 4)}, the wrapper's host issue {hms:.4f} ms), "
+            f"resolve_plain {plain_ms:.2f} ms; "
+            + "; ".join(f"index_select of the {k} table {v['ms']:.4f} ms "
+                        f"(device {fmt(v['device_ms'], 4)}, host issue "
+                        f"{v['host_ms']:.4f} ms)"
+                        for k, v in lib.items())
+            + f"; bound {bound:.4f} ms ({by})")
 
     # packet_kernel, occlusion_kernel and brute_kernel on each frame's
     # primary rays (occlusion_kernel: the light rays of the primary hits),
@@ -1025,22 +1108,36 @@ def main() -> int:
                 rows_g.numel() * 4 + o.shape[0] * 24, o.shape[0] * 8)}
         for name, (run, plain, with_stats, n, in_b, out_b) in runs.items():
             ms = cuda_ms(run, TIMED_FRAMES)
+            dms = device_ms(run, TIMED_FRAMES)
             plain_ms = cuda_ms(plain, 1)
             if with_stats is not None:
-                stats.zero_()
-                with_stats(stats)
-                other, node, tri = stats.tolist()
+                st5 = torch.zeros(5, dtype=torch.int64, device=dev)
+                st_ = st5 if name == "packet_kernel" else stats
+                st_.zero_()
+                with_stats(st_)
+                other, node, tri = st_.tolist()[:3]
                 ops = (other * row_ops_other(sc.flat) + node * OPS_NODE_CULL
                        + tri * OPS_ROW[3])
                 tests = dict(other_rows=other, nodes=node, triangles=tri)
+                if name == "packet_kernel":
+                    # the warp walk's lockstep steps: node steps and row
+                    # steps summed over the warps
+                    w_node, w_row = st_.tolist()[3:]
+                    warps = -(-n // 32)
+                    tests.update(
+                        warp_node_steps=w_node, warp_row_steps=w_row,
+                        node_steps_per_warp=w_node / warps,
+                        row_steps_per_warp=w_row / warps,
+                        simd_efficiency=(other + tri) / max(32 * w_row, 1))
             else:
                 ops = n * sum(c * OPS_ROW[k] for k, c in enumerate(counts))
                 tests = dict(rows=n * sum(counts))
             bound, by = bound_of(in_bytes=in_b, out_bytes=out_b, ops=ops)
             k678.setdefault(name, {})[which] = dict(
-                ms=ms, plain_ms=plain_ms, plain_rays=N_RAYS, rays=n,
-                bound_ms=bound, bound_by=by, tests=tests)
-            log(f"scene {which}: {name} {ms:.3f} ms on {n} rays, plain "
+                ms=ms, device_ms=dms, plain_ms=plain_ms, plain_rays=N_RAYS,
+                rays=n, bound_ms=bound, bound_by=by, tests=tests)
+            log(f"scene {which}: {name} {ms:.3f} ms (device {fmt(dms)}) on "
+                f"{n} rays, plain "
                 f"{plain_ms:.1f} ms on {N_RAYS}; tests {tests}, bound "
                 f"{bound:.4f} ms ({by})")
 
@@ -1091,6 +1188,8 @@ def main() -> int:
         n = o.shape[0]
         ms = cuda_ms(lambda: closest_hit_attrs(split, o, d, cfg.tri_mode),
                      TIMED_FRAMES)
+        dms = device_ms(lambda: closest_hit_attrs(split, o, d, cfg.tri_mode),
+                        TIMED_FRAMES)
         plain_ms = cuda_ms(lambda: closest_hit_attrs_plain(
             split, o, d, cfg.tri_mode), 1)
         stats.zero_()
@@ -1099,8 +1198,8 @@ def main() -> int:
         bound, _, by = bound_ms(stats, split, out_bytes=n * (8 + 44),
                                 in_bytes=table_bytes(split) + n * 24,
                                 extra_ops=n * OPS_RESOLVE)
-        k4[which] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                         bound_by=by, tests=stats.tolist())
+        k4[which] = dict(ms=ms, device_ms=dms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, tests=stats.tolist())
         split_mod.USE_KERNEL_ATTRS = True
         try:
             frame = (lambda: render(sc.flat, lin, sc.camera, sc.light, cfg,
@@ -1111,7 +1210,8 @@ def main() -> int:
             split_mod.USE_KERNEL_ATTRS = False
         k4[which]["frame_idle_share"] = (None if busy is None
                                          else 1 - busy / ka_ms[which])
-        log(f"scene {which}: closest_attrs_kernel {ms:.3f} ms, "
+        log(f"scene {which}: closest_attrs_kernel {ms:.3f} ms (device "
+            f"{fmt(dms)}), "
             f"closest_hit_attrs_plain {plain_ms:.1f} ms ({n} primary rays); "
             f"tests {stats.tolist()}, bound {bound:.4f} ms ({by}); "
             f"USE_KERNEL_ATTRS frame {ka_ms[which]:.3f} ms (per-bounce "
@@ -1156,7 +1256,7 @@ def main() -> int:
              launches=total["wholeframe_kernel"],
              launches_by_mode=by_mode,
              max_abs_err=err["wholeframe_kernel"], ms=k1_ms,
-             plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
+             device_ms=k1[1]["device_ms"], plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
              library_ms=None,
              frame_ms={str(k): v for k, v in timing.items()},
              per_scene={str(k): v for k, v in k1.items()},
@@ -1170,14 +1270,14 @@ def main() -> int:
              replaces="raytracer_tpu/render/pallas_split.py:961",
              launches=total["closest_hit_kernel"],
              max_abs_err=err["closest_hit_kernel"], ms=k2_ms,
-             plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by,
+             device_ms=k2_dms, plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by,
              library_ms=None, held_by=held["closest_hit_kernel"]),
         dict(name="fused_kernel", route="cuda",
              source="raytracer_tpu_torch/csrc/raytrace.cu",
              replaces="raytracer_tpu/render/pallas_split.py:905",
              launches=total["fused_kernel"],
              max_abs_err=err["fused_kernel"], ms=k3[2]["ms"],
-             plain_ms=k3[2]["plain_ms"], bound_ms=k3[2]["bound_ms"],
+             device_ms=k3[2]["device_ms"], plain_ms=k3[2]["plain_ms"], bound_ms=k3[2]["bound_ms"],
              bound_by=k3[2]["bound_by"], library_ms=None,
              per_scene={str(k): v for k, v in k3.items()},
              per_bounce_frame_ms={str(k): v for k, v in pb_ms.items()},
@@ -1189,7 +1289,7 @@ def main() -> int:
              replaces="raytracer_tpu/render/pallas_split.py:978",
              launches=total["resolve_kernel"],
              max_abs_err=err["resolve_kernel"], ms=k5[2]["ms"],
-             plain_ms=k5[2]["plain_ms"], bound_ms=k5[2]["bound_ms"],
+             device_ms=k5[2]["device_ms"], plain_ms=k5[2]["plain_ms"], bound_ms=k5[2]["bound_ms"],
              bound_by=k5[2]["bound_by"], library_ms=k5[2]["library_ms"],
              per_scene={str(k): v for k, v in k5.items()},
              held_by=held["resolve_kernel"]),
@@ -1203,7 +1303,7 @@ def main() -> int:
             name=name, route="cuda",
             source="raytracer_tpu_torch/csrc/raytrace.cu", replaces=replaces,
             launches=total[name], max_abs_err=err[name], ms=top["ms"],
-            plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            device_ms=top["device_ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=None,
             per_scene={str(k): v for k, v in k678[name].items()},
             held_by=held[name]))
@@ -1216,7 +1316,7 @@ def main() -> int:
         replaces="raytracer_tpu/render/pallas_split.py:967",
         launches=total["closest_attrs_kernel"],
         max_abs_err=err["closest_attrs_kernel"], ms=k4[2]["ms"],
-        plain_ms=k4[2]["plain_ms"], bound_ms=k4[2]["bound_ms"],
+        device_ms=k4[2]["device_ms"], plain_ms=k4[2]["plain_ms"], bound_ms=k4[2]["bound_ms"],
         bound_by=k4[2]["bound_by"], library_ms=None,
         per_scene={str(k): v for k, v in k4.items()},
         kernel_attrs_frame_ms={str(k): v for k, v in ka_ms.items()},
@@ -1245,21 +1345,21 @@ def pixel_rays(cam_ops, camera, pix):
     return o.contiguous(), d.contiguous()
 
 
-def query_rays(cam_ops, camera, gen, dev):
-    """N_RAYS seeded rays: half from random points in random directions,
-    half primary rays through random pixels; a tenth parked, 8 with a NaN
-    origin and 8 with a zero direction (the shadow rays of ended lanes)."""
+def query_rays(cam_ops, camera, gen, dev, n=N_RAYS):
+    """n seeded rays: half from random points in random directions, half
+    primary rays through random pixels; a tenth parked, 8 with a NaN origin
+    and 8 with a zero direction (the shadow rays of ended lanes)."""
     import torch
-    half = N_RAYS // 2
+    half = n // 2
     o = torch.rand(half, 3, generator=gen) * 80 - 40
     d = torch.randn(half, 3, generator=gen)
     d = d / d.norm(dim=1, keepdim=True)
     o_s, d_s = pixel_rays(cam_ops, camera,
-                          torch.randint(0, FRAME_W * FRAME_H, (half,),
+                          torch.randint(0, FRAME_W * FRAME_H, (n - half,),
                                         generator=gen).to(dev))
     o = torch.cat([o.to(dev), o_s])
     d = torch.cat([d.to(dev), d_s])
-    parked = torch.randperm(N_RAYS, generator=gen)[:N_RAYS // 10].to(dev)
+    parked = torch.randperm(n, generator=gen)[:n // 10].to(dev)
     o[parked] = 2e30
     d[parked] = 0.5773502691896258
     o[parked[:8], 1] = float("nan")
@@ -1294,20 +1394,45 @@ def row_ops_other(flat):
 
 
 def kernel_times(fn):
-    """(kernel name, device ms) of each kernel of one call of ``fn``, from
-    torch.profiler's key_averages; empty when it records no device
-    time."""
+    """(kernel name, device ms, launches) of each kernel of one call of
+    ``fn``, from torch.profiler's key_averages; empty when it records no
+    device time. A short spin kernel of torch's own (``torch.cuda._sleep``)
+    opens and closes the window and is left out: on some machines a window
+    loses the record of its first or last kernel (``device_ms`` then reads
+    None), and with the spin kernels around the calls it loses one of
+    those instead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES)
         fn()
+        torch.cuda._sleep(SPIN_CYCLES)
         torch.cuda.synchronize()
-    times = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3)
+    times = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3, e.count)
              for e in prof.key_averages()
-             if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    return times if sum(t for _, t in times) > 0 else []
+             if str(getattr(e, "device_type", "")).endswith("CUDA")
+             and "spin_kernel" not in e.key]
+    return times if sum(t for _, t, _ in times) > 0 else []
+
+
+def device_ms(fn, reps, csrc=True):
+    """Mean device ms per call of ``fn``: the summed device time of the
+    kernels that ``reps`` calls launch (torch.profiler), of
+    csrc/raytrace.cu's kernels only (namespace rt) with ``csrc``, over
+    ``reps``. One call is profiled first for its count of such launches;
+    None unless the window of ``reps`` calls records exactly ``reps``
+    times as many (a window that lost launches would read low). Beside
+    ``cuda_ms``, which also holds the time the card waits for the host to
+    issue the next call."""
+    def ours(times):
+        return [(t, c) for k, t, c in times if "rt::" in k or not csrc]
+    per_call = sum(c for _, c in ours(kernel_times(fn)))
+    times = ours(kernel_times(lambda: [fn() for _ in range(reps)]))
+    if per_call == 0 or sum(c for _, c in times) != reps * per_call:
+        return None
+    return sum(t for t, _ in times) / reps
 
 
 def device_busy_ms(fn):
@@ -1318,15 +1443,33 @@ def device_busy_ms(fn):
     times = kernel_times(fn)
     if not times:
         return None, None
-    return (sum(t for _, t in times),
-            sum(t for k, t in times if "rt::" in k))
+    return (sum(t for _, t, _ in times),
+            sum(t for k, t, _ in times if "rt::" in k))
 
 
 def top_device_ops(fn, k):
     """The ``k`` kernels of one call of ``fn`` with the most device time,
     as (name, ms); None when the profiler records no device time."""
     times = sorted(kernel_times(fn), key=lambda x: -x[1])
-    return [(name[:60], t) for name, t in times[:k]] or None
+    return [(name[:60], t) for name, t, _ in times[:k]] or None
+
+
+def host_ms(fn, reps):
+    """Mean host ms per call of ``fn`` (host clock, no synchronisation in
+    the loop): what issuing one call costs the host."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def fmt(ms, digits=3):
+    return "not measured" if ms is None else f"{ms:.{digits}f} ms"
 
 
 def cuda_ms(fn, reps):

@@ -20,16 +20,25 @@
 //   kf, shininess). The walk keeps the winner's row, whose material
 //   columns are read once after it (the TPU kernel carries 11 values
 //   through its loop); misses and parked rays give zero attributes.
-// resolve_kernel replaces pallas_split.py::_resolve_kernel (978-1033): one
-//   thread per ray gathers its row of the attribute table (the TPU's loop
-//   over a tile's distinct ids is a per-lane gather here).
-// packet_kernel and occlusion_kernel replace raytracer_tpu/render/
-//   pallas_bvh.py::_packet_kernel (169-265, with _row_intersect 85-166)
-//   and _occlusion_kernel (268-355): one thread per ray walks the
-//   reference median tree alone (the TPU walks a packet and descends
-//   where any lane probes), with the leaf-box gate implied by entering
-//   only the leaves its own ray hits and t-culling on the nodes flagged
-//   cullable; occlusion_kernel returns at the first inner hit below max_t.
+// resolve_kernel replaces pallas_split.py::_resolve_kernel (978-1033):
+//   the TPU's loop over a tile's distinct ids becomes a per-ray gather from
+//   a copy of the attribute table padded to 16 floats, so that a row is
+//   four aligned 16-byte loads; one thread a ray, the 11 outputs stored as
+//   rows of n floats, coalesced.
+// packet_kernel replaces raytracer_tpu/render/pallas_bvh.py::_packet_kernel
+//   (169-265, with _row_intersect 85-166). As the TPU kernel walks a
+//   packet, a warp walks its 32 rays through the reference median tree in
+//   lockstep under one pointer (raytrace.cuh::warp_walk): each lane enters
+//   only the nodes its own ray probes (so the leaf-box gate and t-culling
+//   are per lane) and waits at a skip pointer otherwise, which gives each
+//   lane its per-thread walk's result bit for bit. A leaf's rows are
+//   staged in shared memory with cp.async, 32 rows a chunk, double
+//   buffered, and every lane reads the same row at once (a broadcast, one
+//   type branch for the warp); each lane tests ROW_ILP rows before it
+//   updates, so that their arithmetic overlaps.
+// occlusion_kernel replaces pallas_bvh.py::_occlusion_kernel (268-355):
+//   one thread per ray walks the tree alone (packet_walk), returning at
+//   the first inner hit below max_t.
 // brute_kernel replaces raytracer_tpu/render/pallas_kernel.py::
 //   _closest_hit_kernel (95-243): one thread per ray runs four typed loops
 //   over every row in type-sorted order, optionally gated by each row's
@@ -41,15 +50,22 @@
 // bytes. The tables (0.25 MB for scene 1, 0.85 MB for scene 2) stay in L2
 // and L1; a pixel's walks do tens to a hundred pre-pass, node and triangle
 // tests of 27-71 f32 operations each (chip_smoke.py counts them). The
-// design is the simple one: a per-thread stackless walk, scalar loads
+// per-thread kernels are the simple design: a stackless walk, scalar loads
 // through the read-only cache, threads of a warp on an 8x4 pixel patch (or
-// on neighbours of the sorted stream) so that they walk similar nodes.
-// Divergence between the lanes of a warp is what this design leaves on
-// the table. resolve_kernel does no walk: it moves 16 bytes in and 44
-// bytes out per ray and is bound by bytes. brute_kernel is bound by
-// operations too (every ray tests every shape) and has no divergence but
-// the typed loops' early outs; packet_kernel's threads diverge most in
-// scene 2's leaf of 707 shapes.
+// on neighbours of the sorted stream) so that they walk similar nodes;
+// divergence between the lanes of a warp is what they leave on the table,
+// most in occlusion_kernel on scene 2's leaf of 707 shapes. packet_kernel
+// keeps its lanes in step instead: on scene 2's 800x600 primary rays 83%
+// of the lanes of a row step test the row, and it takes 0.63 ms against
+// an operations bound of 0.047 ms (scene 1: 0.10 ms against 0.0046 ms of
+// bytes; NVIDIA H100 80GB HBM3 at 700 W, device time from
+// chip_smoke.py), held back by the latency of each lane's chain of row
+// tests more than by issue slots. resolve_kernel does no walk: it moves 16
+// bytes in and 44 out per ray and is bound by bytes (0.0087 ms on 480,000
+// rays); it takes 0.0100-0.0103 ms on the device, 0.85-0.87 of that bound
+// (index_select of the rows alone: 0.021-0.022 ms). brute_kernel is bound
+// by operations too (every ray tests every shape) and has no divergence
+// but the typed loops' early outs.
 //
 // Each launcher returns cudaGetLastError() after the launch; the Python
 // wrapper raises if it is not 0. Launches go on the caller's stream and
@@ -195,35 +211,98 @@ closest_attrs_kernel(Tables s, const float* __restrict__ o,
   add_stats(stats, c);
 }
 
-// out: 11 rows of n floats (n(3), color(3), ka, kd, ks, kf, shininess).
-__global__ void __launch_bounds__(BLOCK)
-resolve_kernel(const float* __restrict__ tab, int n_tab,
+// resolve_kernel: one ray a thread, in blocks of RES_BLOCK threads. On the
+// card this was faster than two or four rays a thread with all their
+// loads issued before any arithmetic (tools/kernel_ab.py, PERF.md).
+constexpr int RES_BLOCK = 256;
+
+// tab: (n_tab, ATTR_PAD_W) padded attribute rows, 16-byte aligned, read as
+// four 16-byte loads. out: 11 rows of n floats (n(3), color(3), ka, kd,
+// ks, kf, shininess). The row is max(gid, 0), clamped to the table as the
+// plain version clamps it.
+__global__ void __launch_bounds__(RES_BLOCK)
+resolve_kernel(const float4* __restrict__ tab, int n_tab,
                const float* __restrict__ gid, const float* __restrict__ p,
                int n, float* __restrict__ out) {
-  int i = blockIdx.x * BLOCK + (int)threadIdx.x;
+  int i = blockIdx.x * RES_BLOCK + (int)threadIdx.x;
   if (i >= n) return;
+  int si = (int)jmax(gid[i], 0.0f);
+  si = si < n_tab ? si : n_tab - 1;
+  float v[ATTR_PAD_W];
+  for (int q = 0; q < 4; ++q) {
+    float4 x = __ldg(tab + 4LL * si + q);
+    v[4 * q] = x.x;
+    v[4 * q + 1] = x.y;
+    v[4 * q + 2] = x.z;
+    v[4 * q + 3] = x.w;
+  }
   float a[11];
-  resolve_ray(tab, n_tab, gid[i], p[3 * i], p[3 * i + 1], p[3 * i + 2], a);
+  resolve_row(v, p[3 * i], p[3 * i + 1], p[3 * i + 2], a);
   for (int k = 0; k < 11; ++k) out[k * (long long)n + i] = a[k];
 }
 
-// o, d: (n, 3). packet_kernel: t and the local row of the closest hit.
+// The card's lane policy of warp_walk (raytrace.cuh): a thread is one lane
+// and votes with its warp; a leaf's rows go to shared memory with cp.async
+// (16 bytes a lane in turn; .ca keeps them in L1 too, for the next warps
+// that enter the leaf), awaited with cp.async.wait_group and made visible
+// to the warp by __syncwarp.
+struct CardWarp {
+  static constexpr int N = 1;
+  __device__ static __forceinline__ bool any(const bool* v) {
+    return __any_sync(0xffffffffu, v[0]);
+  }
+  __device__ static __forceinline__ void sync() { __syncwarp(); }
+  __device__ static __forceinline__ void stage(float* dst, const float* src,
+                                               int n16) {
+    for (int q = (int)(threadIdx.x & 31); q < n16; q += 32) {
+      unsigned s = (unsigned)__cvta_generic_to_shared(dst + 4 * q);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                   "l"(src + 4 * q)
+                   : "memory");
+    }
+  }
+  __device__ static __forceinline__ void commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  __device__ static __forceinline__ void wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+  __device__ static __forceinline__ void wait_but_one() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  }
+};
+
+constexpr int PK_BLOCK = 128, PK_WARPS = PK_BLOCK / 32;
+
+// o, d: (n, 3). packet_kernel: t and the local row of the closest hit, by
+// the warp walk (raytrace.cuh::warp_walk). Every thread of a warp stays to
+// the end: a thread past n is a lane that never walks. stats: the lanes'
+// counts summed (0-2) and the warps' node and row steps (3, 4).
 template <bool MT, bool CULL>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(PK_BLOCK)
 packet_kernel(Tree s, const float* __restrict__ o,
               const float* __restrict__ d, int n, float* __restrict__ t_out,
               int* __restrict__ row_out, unsigned long long* stats) {
-  int i = blockIdx.x * BLOCK + (int)threadIdx.x;
-  if (i >= n) return;
-  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
-                   d[3 * i + 1], d[3 * i + 2]);
-  Counts c = {0u, 0u, 0u};
-  float t;
-  int row;
-  packet_walk<MT, CULL, false>(s, r, INF, c, t, row);
-  t_out[i] = t;
-  row_out[i] = row;
-  add_stats(stats, c);
+  __shared__ __align__(16) float rows_buf[PK_WARPS][2 * CHUNK_FLOATS];
+  int i = blockIdx.x * PK_BLOCK + (int)threadIdx.x;
+  bool live = i < n;
+  Ray r = make_ray(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
+  if (live)
+    r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                 d[3 * i + 1], d[3 * i + 2]);
+  Lane a;
+  lane_init(a, s, live, r);
+  WarpCounts wc = {0u, 0u};
+  warp_walk<CardWarp, MT, CULL>(s, &a, rows_buf[threadIdx.x >> 5], wc);
+  if (live) {
+    t_out[i] = a.t;
+    row_out[i] = a.row;
+    add_stats(stats, a.c);
+  }
+  if (stats != nullptr && (threadIdx.x & 31) == 0) {
+    atomicAdd(stats + 3, (unsigned long long)wc.node);
+    atomicAdd(stats + 4, (unsigned long long)wc.row);
+  }
 }
 
 // occlusion_kernel: 1 where some inner hit has t < max_t[i].
@@ -386,14 +465,14 @@ int rt_closest_attrs(const int* leaf_start, const int* leaf_count,
 
 int rt_resolve(const float* tab, int n_tab, const float* gid, const float* p,
                int n, float* out, void* stream) {
-  int grid = (n + rt::BLOCK - 1) / rt::BLOCK;
-  rt::resolve_kernel<<<grid, rt::BLOCK, 0, (cudaStream_t)stream>>>(
-      tab, n_tab, gid, p, n, out);
+  int grid = (n + rt::RES_BLOCK - 1) / rt::RES_BLOCK;
+  rt::resolve_kernel<<<grid, rt::RES_BLOCK, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(tab), n_tab, gid, p, n, out);
   return (int)cudaGetLastError();
 }
 
-// max_t null: packet_kernel (t_out, row_out); else occlusion_kernel
-// (occ_out).
+// max_t null: packet_kernel (t_out, row_out; stats of 5 counts); else
+// occlusion_kernel (occ_out; stats of 3).
 int rt_packet(const int* leaf_start, const int* leaf_count, const int* skip,
               const float* nodes, const float* rows, int m, const float* o,
               const float* d, const float* max_t, int n, float* t_out,
@@ -401,11 +480,12 @@ int rt_packet(const int* leaf_start, const int* leaf_count, const int* skip,
               unsigned long long* stats, void* stream) {
   rt::Tree s = {leaf_start, leaf_count, skip, nodes, rows, m};
   int grid = (n + rt::BLOCK - 1) / rt::BLOCK;
+  int pk_grid = (n + rt::PK_BLOCK - 1) / rt::PK_BLOCK;
   cudaStream_t st = (cudaStream_t)stream;
 #define RT_LAUNCH(MT, CULL)                                               \
   do {                                                                    \
     if (max_t == nullptr)                                                 \
-      rt::packet_kernel<MT, CULL><<<grid, rt::BLOCK, 0, st>>>(            \
+      rt::packet_kernel<MT, CULL><<<pk_grid, rt::PK_BLOCK, 0, st>>>(      \
           s, o, d, n, t_out, row_out, stats);                             \
     else                                                                  \
       rt::occlusion_kernel<MT, CULL><<<grid, rt::BLOCK, 0, st>>>(         \

@@ -10,12 +10,14 @@ kernels ``_packet_kernel`` (with ``_row_intersect``, pallas_bvh.py:169,
 ``packet_plain`` and ``occlusion_plain``: the wavefront walk
 (render/wavefront.py::walk) with culling.
 
-Per packet against per thread. The TPU kernel walks one packet of rays
+Per packet against per lane. The TPU kernel walks one packet of rays
 down the tree, descends where ANY lane probes, and in a leaf lets each
-lane test the shapes whose leaf box its own ray hits. Each CUDA thread
-walks alone and enters only the nodes its own ray probes. A lane's result
-is the same: child boxes nest inside their parents, and a shape contained
-in its leaf box has t >= the box's tmin, so a subtree culled for
+lane test the shapes whose leaf box its own ray hits. packet_kernel walks
+a warp of 32 rays in lockstep too, but each lane enters only the nodes
+its own ray probes (a lane that does not probe waits for the warp at the
+node's skip pointer), and occlusion_kernel's threads walk alone. A lane's
+result is the same: child boxes nest inside their parents, and a shape
+contained in its leaf box has t >= the box's tmin, so a subtree culled for
 tmin > t_best holds no better hit. Nodes whose subtree holds a degenerate
 (infinite-plane) wall, which can hit outside its box, are not culled.
 """
@@ -83,7 +85,8 @@ def _launch(tree: Tree, o, d, max_t, use_mt, t_cull, stats):
     if max_t is not None:
         kernels.check_tensor("max_t", max_t, torch.float32, dev, (n,))
     if stats is not None:
-        kernels.check_tensor("stats", stats, torch.int64, dev, (3,))
+        kernels.check_tensor("stats", stats, torch.int64, dev,
+                             (3 if max_t is not None else 5,))
     m = tree.m
     for name in ("leaf_start", "leaf_count", "skip"):
         kernels.check_tensor(name, getattr(tree, name), torch.int32, dev,
@@ -112,9 +115,11 @@ def packet_hit(tree: Tree, o: torch.Tensor, d: torch.Tensor, use_mt: bool,
                t_cull: bool, stats: Optional[torch.Tensor] = None):
     """Closest hit of R rays o, d (R, 3) f32 over ``tree``: (t, row int32).
     On a CUDA tensor this launches ``packet_kernel``; on a CPU tensor it
-    runs ``packet_plain``. ``stats``, an int64 (3,) tensor on the card,
+    runs ``packet_plain``. ``stats``, an int64 (5,) tensor on the card,
     receives the counts of non-triangle row tests, node probes and
-    triangle row tests."""
+    triangle row tests (summed over the rays), then of the warps' node
+    steps and row steps (summed over the warps: the kernel walks a warp's
+    32 rays in lockstep)."""
     if o.device.type == "cpu":
         return packet_plain(tree, o, d, use_mt, t_cull)
     if o.device.type != "cuda":
@@ -133,7 +138,8 @@ def occlusion(tree: Tree, o: torch.Tensor, d: torch.Tensor,
               stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """True where ray o, d (R, 3) f32 has an inner hit at t < max_t (R,).
     On a CUDA tensor this launches ``occlusion_kernel``; on a CPU tensor
-    it runs ``occlusion_plain``. ``stats`` as for ``packet_hit``."""
+    it runs ``occlusion_plain``. ``stats``, an int64 (3,) tensor on the
+    card, receives the rays' counts as for ``packet_hit``."""
     if o.device.type == "cpu":
         return occlusion_plain(tree, o, d, max_t, use_mt, t_cull)
     if o.device.type != "cuda":

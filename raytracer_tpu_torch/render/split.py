@@ -42,7 +42,7 @@ from raytracer_tpu_torch.core.camera import camera_rays
 from raytracer_tpu_torch.device import resolve_device
 from raytracer_tpu_torch.geom.direct import INF, div_rn, sqrt_rn
 from raytracer_tpu_torch.render import kernels, shading, whitted
-from raytracer_tpu_torch.render.whitted import (ATTR_W, PARK_ORIGIN,
+from raytracer_tpu_torch.render.whitted import (ATTR_PAD_W, PARK_ORIGIN,
                                                 _PARK_DIR as PARK_DIR)
 from raytracer_tpu_torch.render.split_scene import (
     G_B0X, G_GID, G_MCR, G_MSH, G_RID, T_CV, T_CW, T_E1X, T_E2X, T_EVX,
@@ -464,9 +464,10 @@ def _attrs(out: torch.Tensor):
 def resolve_plain(attr_tab: torch.Tensor, gid: torch.Tensor,
                   p: torch.Tensor) -> torch.Tensor:
     """Plain version of ``resolve_kernel``: the (11, R) attribute rows of
-    row max(gid, 0) of attr_tab (clamped to the table) at hit points p
-    (R, 3). The sphere normal is rel / sqrt(|rel|^2 + 1e-30), correctly
-    rounded, blended with the plane-family normal by is_sphere."""
+    row max(gid, 0) of attr_tab (clamped to the table; its first 15
+    columns, so the padded copy gives the same) at hit points p (R, 3).
+    The sphere normal is rel / sqrt(|rel|^2 + 1e-30), correctly rounded,
+    blended with the plane-family normal by is_sphere."""
     si = gid.clamp_min(0.0).to(torch.int64).clamp_max(attr_tab.shape[0] - 1)
     row = attr_tab[si]
     is_s = row[:, 14]
@@ -480,9 +481,11 @@ def resolve_plain(attr_tab: torch.Tensor, gid: torch.Tensor,
 
 def resolve(attr_tab: torch.Tensor, gid: torch.Tensor,
             p: torch.Tensor) -> torch.Tensor:
-    """The (11, R) shading-attribute rows of R hits: gid (R,) f32 shape id
-    (-1 on miss, resolved as row 0), p (R, 3) f32 hit points. On a CUDA
-    tensor this launches ``resolve_kernel``; on a CPU tensor it runs
+    """The (11, R) shading-attribute rows of R hits: attr_tab the padded
+    table (``whitted._attr_table(scene, padded=True)``, (N, 16); on the
+    CPU the 15-column table does as well), gid (R,) f32 shape id (-1 on
+    miss, resolved as row 0), p (R, 3) f32 hit points. On a CUDA tensor
+    this launches ``resolve_kernel``; on a CPU tensor it runs
     ``resolve_plain``."""
     dev = gid.device
     if dev.type == "cpu":
@@ -491,7 +494,7 @@ def resolve(attr_tab: torch.Tensor, gid: torch.Tensor,
         raise ValueError(f"resolve: unsupported device {dev}")
     n = gid.shape[0]
     kernels.check_tensor("attr_tab", attr_tab, torch.float32, dev,
-                         (None, ATTR_W))
+                         (None, ATTR_PAD_W))
     kernels.check_tensor("gid", gid, torch.float32, dev, (None,))
     kernels.check_tensor("p", p, torch.float32, dev, (n, 3))
     if attr_tab.shape[0] == 0:
@@ -562,9 +565,9 @@ closest_hit_attrs.launches = 0
 
 def make_attr_resolver(cfg: RenderConfig):
     """resolve(attr_tab, gid, p) -> (n, color, ka, kd, ks, kf, shininess),
-    as ``pallas_split.make_attr_resolver``: gid (R,) f32 shape id (-1 on
-    miss), p (R, 3) hit points. (The JAX version pads to its tiles; the
-    kernel takes any R.)"""
+    as ``pallas_split.make_attr_resolver``: attr_tab as ``resolve`` takes
+    it, gid (R,) f32 shape id (-1 on miss), p (R, 3) hit points. (The JAX
+    version pads to its tiles; the kernel takes any R.)"""
 
     def resolver(attr_tab, gid, p):
         return _attrs(resolve(attr_tab, gid.contiguous(), p.contiguous()))

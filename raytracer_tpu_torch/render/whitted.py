@@ -39,11 +39,15 @@ PARK_ORIGIN = 2e30
 _PARK_DIR = 0.5773502691896258  # 1/sqrt(3): unit, no zero components
 
 ATTR_W = 15  # columns of _attr_table
+ATTR_PAD_W = 16  # columns of its padded copy (resolve_kernel's rows)
 
 
-def _attr_table(scene: FlatScene) -> torch.Tensor:
+def _attr_table(scene: FlatScene, padded: bool = False) -> torch.Tensor:
     """Packed (N, 15) shading-attribute table, one row per shape:
-    [n(3), color(3), ka, kd, ks, kf, shininess, center(3), is_sphere]."""
+    [n(3), color(3), ka, kd, ks, kf, shininess, center(3), is_sphere].
+    ``padded`` adds a zero column: (N, 16) rows of 64 bytes, which
+    resolve_kernel reads with four 16-byte loads."""
+    pad = [scene.plane_normal.new_zeros(scene.plane_normal.shape[0], 1)]
     return torch.cat([
         scene.plane_normal,
         scene.mat_color,
@@ -54,7 +58,7 @@ def _attr_table(scene: FlatScene) -> torch.Tensor:
         scene.mat_shininess[:, None],
         scene.sphere_center,
         (scene.shape_type == SPHERE).to(torch.float32)[:, None],
-    ], dim=1).contiguous()
+    ] + (pad if padded else []), dim=1).contiguous()
 
 
 # Bit i of a 7-bit value moved to bit 3i: the Morton interleave of one
@@ -114,8 +118,9 @@ def trace(scene: FlatScene, light, closest_hit_fn, o: torch.Tensor,
     light_pos) -> (t, sid, hit, in_shadow): closest hit and shadow answer
     in one launch; takes precedence over both. resolve_fn(attr_tab, gid,
     p) -> (n, color, ka, kd, ks, kf, shininess): the shading attributes of
-    the hits, in place of the row gather attr_tab[sid] with the sphere
-    normal from the hit point. (The JAX function's ``DEBUG_CONST_SHADE``
+    the hits from the padded table (``_attr_table(padded=True)``), in
+    place of the row gather attr_tab[sid] with the sphere normal from the
+    hit point. (The JAX function's ``DEBUG_CONST_SHADE``
     branch has no counterpart.)
 
     With cfg.sort_bounces the rays are re-packed once after bounce 1 by
@@ -133,7 +138,8 @@ def trace(scene: FlatScene, light, closest_hit_fn, o: torch.Tensor,
     alive = torch.ones(n_rays, dtype=torch.bool, device=dev)
     missed = torch.zeros(n_rays, dtype=torch.bool, device=dev)
     ret = torch.arange(n_rays, device=dev)
-    attr_tab = _attr_table(scene)
+    # resolve_fn reads the padded copy, made here with the table
+    attr_tab = _attr_table(scene, padded=resolve_fn is not None)
     use_fused = fused_fn is not None and cfg.enable_shadows
     provides_attrs = getattr(closest_hit_fn, "provides_attrs", False)
     # shadow rays need no attributes: the plain closest hit where the

@@ -114,6 +114,28 @@ def test_attr_resolver_matches_jax():
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("which", [1, 2])
+def test_padded_attr_table_matches_jax(which):
+    """resolve_kernel's padded table: the JAX ``_attr_table`` in its first
+    15 columns and 0 in the 16th; the plain resolver gives the same on
+    either table."""
+    sc, _, _ = jax_scene(which)
+    p = ported(which)
+    tab16 = whitted._attr_table(p.flat, padded=True)
+    assert tab16.shape == (sc.num_shapes, whitted.ATTR_PAD_W)
+    np.testing.assert_array_equal(tab16[:, :15].numpy(),
+                                  np.asarray(jax_whitted._attr_table(sc.flat)))
+    assert not tab16[:, 15].any()
+    assert tab16.data_ptr() % 16 == 0
+    rng = np.random.default_rng(which)
+    gid = torch.from_numpy(
+        rng.integers(-1, sc.num_shapes, 512).astype(np.float32))
+    pts = torch.from_numpy(rng.uniform(-9.0, 9.0, (512, 3)).astype(np.float32))
+    resolve = make_attr_resolver(RenderConfig())
+    for a, b in zip(resolve(tab16, gid, pts), resolve(p.attr_tab, gid, pts)):
+        assert torch.equal(a, b)
+
+
 @functools.lru_cache(maxsize=None)
 def _reference(which, max_bounces, enable_shadows):
     """The JAX oracle at 24x18 (jitted, and one operation at a time)."""

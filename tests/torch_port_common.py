@@ -21,6 +21,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from raytracer_tpu.accel import build_bvh, linearize
 from raytracer_tpu.accel.linearize import shape_leaf_boxes
@@ -34,6 +35,13 @@ from raytracer_tpu_torch import interop
 from raytracer_tpu_torch.render.split_scene import REFIT_FIELDS
 
 CAMERA_FIELDS = ("position", "front", "up", "right", "fov_deg", "aspect")
+
+# The Tier-1 command runs six pytest-xdist workers on one machine, most of
+# them in the JAX package's tests, and every worker imports this module
+# when it collects the tests. PyTorch's default of one intra-op thread per
+# core in each worker oversubscribes the cores; the port's tensors here are
+# small, so its CPU tests run on one thread.
+torch.set_num_threads(1)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Hold the CUDA device code of the packet-BVH, brute-force and split
-closest-hit walks against their plain PyTorch versions on the CPU, and
-count the packet walk's tests.
+"""Hold the CUDA device code of the packet-BVH (per thread and per warp),
+brute-force and split closest-hit walks against their plain PyTorch
+versions on the CPU, and count the packet walks' tests and steps.
 
 The per-ray device code in raytracer_tpu_torch/csrc/raytrace.cuh is plain
 C++ apart from four CUDA names, so g++ compiles it as host code once those
 are defined. This script builds a small shared library of host loops over
 ``closest_walk`` (the walk of closest_hit_kernel, fused_kernel and
 wholeframe_kernel; with the material pointer, of closest_attrs_kernel),
-``packet_walk`` and ``brute_ray`` (the bodies of packet_kernel,
-occlusion_kernel and brute_kernel), runs it on seeded rays
+``warp_walk`` (the body of packet_kernel: 32 lanes a call, votes as
+loops, the leaf rows staged as cp.async would stage them),
+``packet_walk`` (per thread: the body of occlusion_kernel, and the walk
+whose per-lane counts the warp walk must equal) and ``brute_ray`` (the
+body of brute_kernel), runs it on seeded rays
 of scenes 1-3 and of a scene with every shape type (random and camera
 rays, a tenth parked, some NaN, some of zero direction) for every
 template variant, and compares t, ids, rows
@@ -17,7 +20,8 @@ and occlusion with ``closest_hit_plain``, ``closest_hit_attrs_plain``,
 ``packet_plain``,
 ``occlusion_plain`` and ``brute_plain`` bit for bit. It then prints the
 packet walk's node probes and row tests per primary ray of a 200x150
-frame (and per light ray of its hits), t-culling on and off.
+frame (and per light ray of its hits), t-culling on and off, and the warp
+walk's steps and SIMD efficiency on those rays in image order.
 
     python3 tools/host_check.py
 
@@ -47,10 +51,74 @@ from raytracer_tpu_torch.scenes import generate_scene  # noqa: E402
 
 SHIM = r"""
 #include <math.h>
+#include <string.h>
+#include <vector>
 #define __device__
 #define __forceinline__ inline
 template <class T> T __ldg(const T* p) { return *p; }
 #include "raytrace.cuh"
+
+// warp_walk's lane policy on the host: one thread runs the 32 lanes of a
+// warp, a vote is a loop over them. The staging copies keep cp.async's
+// group semantics: a copy poisons its destination when it is issued (a
+// row of type -1, which no test accepts and which counts as a non-triangle
+// test) and lands only when a wait covers its group, so reading a chunk
+// before its wait, or refilling a buffer that is still being read, shows
+// as a difference in t, the row or the counts.
+struct HostWarp {
+  static constexpr int N = 32;
+  struct Copy { float* dst; const float* src; int n16; };
+  static std::vector<std::vector<Copy>>& groups() {
+    static std::vector<std::vector<Copy>> g(1);
+    return g;
+  }
+  static bool any(const bool* v) {
+    for (int l = 0; l < N; ++l)
+      if (v[l]) return true;
+    return false;
+  }
+  static void sync() {}
+  static void stage(float* dst, const float* src, int n16) {
+    for (int q = 0; q < 4 * n16; ++q) dst[q] = -1.0f;
+    groups().back().push_back({dst, src, n16});
+  }
+  static void commit() { groups().emplace_back(); }
+  static void land(size_t keep) {   // all committed groups but the last keep
+    auto& g = groups();
+    size_t done = g.size() - 1 > keep ? g.size() - 1 - keep : 0;
+    for (size_t k = 0; k < done; ++k)
+      for (const Copy& c : g[k]) memcpy(c.dst, c.src, 16 * (size_t)c.n16);
+    g.erase(g.begin(), g.begin() + done);
+  }
+  static void wait_all() { land(0); }
+  static void wait_but_one() { land(1); }
+};
+
+template <bool MT, bool CULL>
+static void warp_all(const rt::Tree& s, const float* o, const float* d, int n,
+                     float* t_out, int* row_out, unsigned long long* stats) {
+  alignas(16) static float buf[2 * rt::CHUNK_FLOATS];
+  for (int w = 0; w < n; w += 32) {
+    rt::Lane ln[32];
+    for (int l = 0; l < 32; ++l) {
+      int i = w + l;
+      rt::Ray r = rt::make_ray(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
+      if (i < n)
+        r = rt::make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                         d[3 * i + 1], d[3 * i + 2]);
+      rt::lane_init(ln[l], s, i < n, r);
+    }
+    rt::WarpCounts wc = {0u, 0u};
+    rt::warp_walk<HostWarp, MT, CULL>(s, ln, buf, wc);
+    for (int l = 0; l < 32 && w + l < n; ++l) {
+      t_out[w + l] = ln[l].t;
+      row_out[w + l] = ln[l].row;
+      stats[0] += ln[l].c.pre; stats[1] += ln[l].c.node;
+      stats[2] += ln[l].c.tri;
+    }
+    stats[3] += wc.node; stats[4] += wc.row;
+  }
+}
 
 template <bool MT, bool CULL>
 static void packet_all(const rt::Tree& s, const float* o, const float* d,
@@ -145,6 +213,16 @@ void h_packet(const int* ls, const int* lc, const int* sk, const float* nodes,
   if (!mt && cull) packet_all<false, true>(s, o, d, max_t, n, t_out, row_out, occ, st);
   if (!mt && !cull) packet_all<false, false>(s, o, d, max_t, n, t_out, row_out, occ, st);
 }
+void h_warp(const int* ls, const int* lc, const int* sk, const float* nodes,
+            const float* rows, int m, const float* o, const float* d, int n,
+            float* t_out, int* row_out, int mt, int cull,
+            unsigned long long* st) {
+  rt::Tree s = {ls, lc, sk, nodes, rows, m};
+  if (mt && cull) warp_all<true, true>(s, o, d, n, t_out, row_out, st);
+  if (mt && !cull) warp_all<true, false>(s, o, d, n, t_out, row_out, st);
+  if (!mt && cull) warp_all<false, true>(s, o, d, n, t_out, row_out, st);
+  if (!mt && !cull) warp_all<false, false>(s, o, d, n, t_out, row_out, st);
+}
 void h_brute(const float* rows, const int* cnt, const float* o, const float* d,
              int n, float* t_out, int* row_out, int mt, int gate) {
   if (mt && gate) brute_all<true, true>(rows, cnt, o, d, n, t_out, row_out);
@@ -183,6 +261,26 @@ def host_packet(lib, tree, o, d, use_mt, t_cull, max_t=None):
                  ptr(max_t), n, ptr(t), ptr(row), ptr(occ), int(use_mt),
                  int(t_cull), ptr(stats))
     return (t, row) if max_t is None else occ, stats.tolist()
+
+
+def host_warp(lib, tree, o, d, use_mt, t_cull):
+    """(t, row) of packet_kernel's warp walk, run on the host 32 lanes at a
+    time, and its counts: the lanes' non-triangle, node and triangle tests,
+    then the warps' node steps and row steps."""
+    n = o.shape[0]
+    t = torch.empty(n)
+    row = torch.empty(n, dtype=torch.int32)
+    stats = torch.zeros(5, dtype=torch.int64)
+    lib.h_warp(ptr(tree.leaf_start), ptr(tree.leaf_count), ptr(tree.skip),
+               ptr(tree.nodes), ptr(tree.rows), tree.m, ptr(o), ptr(d), n,
+               ptr(t), ptr(row), int(use_mt), int(t_cull), ptr(stats))
+    return (t, row), stats.tolist()
+
+
+def simd_efficiency(stats):
+    """Lane row tests over 32 x the warps' row steps (counts of
+    ``host_warp`` or packet_kernel)."""
+    return (stats[0] + stats[2]) / max(32 * stats[4], 1)
 
 
 def seeded_rays(camera, n, gen):
@@ -236,9 +334,17 @@ def main() -> int:
             for use_mt in (False, True):
                 for t_cull in (False, True):
                     tree = packet.make_tree(lin, sc.flat, t_cull=t_cull)
-                    (tk, rk), _ = host_packet(lib, tree, o, d, use_mt,
-                                              t_cull)
+                    (tk, rk), st = host_packet(lib, tree, o, d, use_mt,
+                                               t_cull)
                     tp, rp = packet.packet_plain(tree, o, d, use_mt, t_cull)
+                    (tw, rw), sw = host_warp(lib, tree, o, d, use_mt, t_cull)
+                    diff = [int((tw != tp).sum()), int((rw != rp).sum()),
+                            int(sw[:3] != st)]
+                    bad += sum(diff)
+                    print(f"scene {which} warp walk mt {int(use_mt)} t_cull "
+                          f"{int(t_cull)}: t, row, lane counts differ on "
+                          f"{diff}; SIMD efficiency "
+                          f"{simd_efficiency(sw):.3f}")
                     limit = torch.where(tp < 1e30, tp * 0.7, 50.0)
                     limit[:8], limit[8:16] = float("inf"), float("nan")
                     ok, _ = host_packet(lib, tree, o, d, use_mt, t_cull,
@@ -274,11 +380,15 @@ def main() -> int:
             for t_cull in (True, False):
                 tree = packet.make_tree(lin, sc.flat, t_cull=t_cull)
                 (t, _), st = host_packet(lib, tree, po, pd, False, t_cull)
+                _, sw = host_warp(lib, tree, po, pd, False, t_cull)
                 hit = t < 1e30
                 per = [round(x / po.shape[0], 1) for x in st]
                 line = (f"scene {which} t_cull {int(t_cull)} 200x150: "
                         f"{float(hit.float().mean()):.3f} of rays hit; "
-                        f"non-triangle, node, triangle tests per ray {per}")
+                        f"non-triangle, node, triangle tests per ray {per}; "
+                        f"warp walk in image order: node and row steps a "
+                        f"warp {[round(32 * x / po.shape[0], 1) for x in sw[3:]]}"
+                        f", SIMD efficiency {simd_efficiency(sw):.3f}")
                 if t_cull and hit.any():
                     p = po[hit] + t[hit, None] * pd[hit]
                     to = sc.light.position - p
