@@ -24,7 +24,11 @@ gradients through the plain closest hit; and 5 steps of
 diff.fit_scene_params through diff.make_kernel_renderer. It times each
 kernel on the main paths' inputs by CUDA events over back-to-back calls
 (the call, which holds the host's issue time where that is longer) and by
-torch.profiler (the device), the frames by CUDA events, and prints one
+torch.profiler (the device), closest_hit_kernel on both scenes' primary
+rays and in occlusion mode on the light rays of their hits (the timed
+call held bit for bit against the plain version on every 97th ray), brute_kernel
+with its gate and row tests and a bound counted from the rows its gate
+leaves, the frames by CUDA events, and prints one
 JSON line of the kernels and, last, {"ok": true, "device": {...}}. Any
 failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA device it exits non-zero at once.
@@ -84,6 +88,8 @@ OPS_RESOLVE = 25
 OPS_ROW = {0: OPS_SPHERE, 1: 26, 2: 43, 3: 49}
 OPS_ROW_MT = 58
 OPS_NODE_CULL = OPS_NODE + 2
+# brute_kernel's gate of a run: the node probe without its cull compares.
+OPS_GATE = OPS_NODE - 2
 # The packet and brute-force frames against the wavefront frame (the JAX
 # package's bars, tests/test_pallas_bvh.py:33 and tests/test_pallas.py:36).
 PACKET_ATOL, BRUTE_ATOL = 2e-5, 1e-4
@@ -185,6 +191,7 @@ def main() -> int:
 
     # -- phase 3: closest_hit_kernel against closest_hit_plain ----------------
     t = time.perf_counter()
+    n_q = N_RAYS + 17   # a partial block and warp
     for which, (sc, _, split, _) in scenes.items():
         o_r = (torch.rand(N_RAYS, 3, generator=gen) * 80 - 40).to(dev)
         d_r = torch.randn(N_RAYS, 3, generator=gen)
@@ -192,31 +199,32 @@ def main() -> int:
         o_s, d_s = pixel_rays(cam_ops, sc.camera,
                               torch.randint(0, FRAME_W * FRAME_H, (N_RAYS,),
                                             generator=gen).to(dev))
-        o = torch.cat([o_r, o_s]).contiguous()
-        d = torch.cat([d_r, d_s]).contiguous()
+        o_q, d_q = query_rays(cam_ops, sc.camera, gen, dev, n_q)
+        o = torch.cat([o_r, o_s, o_q]).contiguous()
+        d = torch.cat([d_r, d_s, d_q]).contiguous()
+        u = torch.rand(o.shape[0], generator=gen).to(dev)
         for mode in (1, 0, 2):   # Gram (default), raw, Moller-Trumbore
             tk, gk = closest_hit(split, o, d, mode)
             tp, gp = closest_hit_plain(split, o, d, mode)
-            agree = (gk == gp).float().mean().item()
-            both = (gk == gp) & (tp < INF)
-            rel = ((tk - tp).abs() / tp.abs().clamp_min(1e-30))[both]
-            rel = rel.max().item() if rel.numel() else 0.0
-            u = torch.rand(2 * N_RAYS, generator=gen).to(dev)
             limit = torch.where(tp < INF, tp * (0.5 + u), 100 * u)
-            ok_ = closest_hit(split, o, d, mode, max_t=limit)[0] == 0
-            op_ = closest_hit_plain(split, o, d, mode, max_t=limit)[0] == 0
-            occ_agree = (ok_ == op_).float().mean().item()
-            log(f"phase 3: scene {which} tri mode {mode}: gid agree "
-                f"{agree:.6f}, max rel dt {rel:.3g}, occlusion agree "
-                f"{occ_agree:.6f} ({int(op_.sum())} occluded)")
-            check(agree >= 0.9999 and occ_agree >= 0.9999 and rel <= 1e-5,
+            limit[:8], limit[8:16] = float("inf"), float("nan")
+            ok_ = closest_hit(split, o, d, mode, max_t=limit)
+            op_ = closest_hit_plain(split, o, d, mode, max_t=limit)
+            dt = (tk - tp).abs()[tp < INF].max().item()
+            log(f"phase 3: scene {which} tri mode {mode}: {o.shape[0]} rays "
+                f"({int((tp < INF).sum())} hits): max-abs dt {dt:.3g}, gid "
+                f"differs on {int((gk != gp).sum())}, occlusion on "
+                f"{int((ok_[0] != op_[0]).sum())} "
+                f"({int((op_[0] == 0).sum())} occluded)")
+            check(torch.equal(tk, tp) and torch.equal(gk, gp)
+                  and torch.equal(ok_[0], op_[0])
+                  and torch.equal(ok_[1], op_[1]),
                   "closest_hit_kernel disagrees with closest_hit_plain")
-            err["closest_hit_kernel"] = max(err["closest_hit_kernel"],
-                                            (tk - tp).abs()[both].max().item()
-                                            if both.any() else 0.0)
+            err["closest_hit_kernel"] = max(err["closest_hit_kernel"], dt)
     held["closest_hit_kernel"].append(
-        f"phase 3: {2 * N_RAYS} random and camera rays x 3 triangle tests x "
-        "closest and occlusion, scenes 1 and 2")
+        f"phase 3: {2 * N_RAYS + n_q} random and camera rays (of them {n_q} "
+        "with a tenth parked, 8 NaN, 8 of zero direction) x 3 triangle "
+        "tests x closest and occlusion, scenes 1 and 2: bit-exact")
     log(f"phase 3 done in {time.perf_counter() - t:.1f}s")
 
     # -- phase 3b: fused_kernel against fused_plain ---------------------------
@@ -374,25 +382,35 @@ def main() -> int:
                 boxes = shape_leaf_boxes(lin, sc.num_shapes) if gate else None
                 rows = brute.pack_rows_ext(sc.flat, perm, boxes)
                 brute_rows[which, gate] = rows
-                tk, rk = brute.brute_hit(rows, counts, o, d, use_mt, gate)
                 tp, rp = brute.brute_plain(rows, counts, o, d, use_mt, gate)
-                dt = (tk - tp).abs().max().item()
-                agree = (rk == rp).float().mean().item()
-                log(f"phase 3d: scene {which} mt {int(use_mt)} gate "
-                    f"{int(gate)}: brute max-abs dt {dt:.3g}, row agree "
-                    f"{agree:.6f} ({int((tp < INF).sum())} hits)")
-                check(dt == 0 and agree == 1.0,
-                      "brute_kernel disagrees with brute_plain")
-                err["brute_kernel"] = max(err["brute_kernel"], dt)
+                # the run table, and (gate on) one run a row: more runs
+                # than shared memory holds, staged in chunks
+                tables = [("runs", brute.box_runs(rows, counts, gate))]
+                if gate:
+                    tables.append(("one run a row", single_runs(rows)))
+                for label, runs in tables:
+                    tk, rk = brute.brute_hit(rows, counts, o, d, use_mt, gate,
+                                             runs)
+                    dt = (tk - tp).abs().max().item()
+                    agree = (rk == rp).float().mean().item()
+                    log(f"phase 3d: scene {which} mt {int(use_mt)} gate "
+                        f"{int(gate)}, {runs.shape[0]} {label}: brute "
+                        f"max-abs dt {dt:.3g}, row agree {agree:.6f} "
+                        f"({int((tp < INF).sum())} hits)")
+                    check(torch.equal(tk, tp) and torch.equal(rk, rp),
+                          "brute_kernel disagrees with brute_plain")
+                    err["brute_kernel"] = max(err["brute_kernel"], dt)
     # brute_kernel's plane loop: no reference scene has a plane
     typed = typed_scene(dev)
     o, d = query_rays(cam_ops, cam_ops.from_euler(fov_deg=60, aspect=4 / 3,
                                                   device=dev), gen, dev, n_q)
     perm, counts = brute.sort_scene_by_type(typed)
-    rows = brute.pack_rows_ext(typed, perm)
     # packet_kernel's warp walk on every shape type (planes, degenerate
     # walls: the nodes t-culling must not skip), all four variants
     typed_lin = linearize(build_bvh(typed, 3))
+    rows_typed = {False: brute.pack_rows_ext(typed, perm),
+                  True: brute.pack_rows_ext(typed, perm, shape_leaf_boxes(
+                      typed_lin, typed.num_shapes))}
     for use_mt in (False, True):
         by_cull = []
         for t_cull in (False, True):
@@ -413,8 +431,9 @@ def main() -> int:
               "t_cull on and off disagree on the typed scene")
     for use_mt in (False, True):
         for gate in (False, True):
-            tk, rk = brute.brute_hit(rows, counts, o, d, use_mt, gate)
-            tp, rp = brute.brute_plain(rows, counts, o, d, use_mt, gate)
+            rows_t = rows_typed[gate]
+            tk, rk = brute.brute_hit(rows_t, counts, o, d, use_mt, gate)
+            tp, rp = brute.brute_plain(rows_t, counts, o, d, use_mt, gate)
             dt = (tk - tp).abs().max().item()
             agree = (rk == rp).float().mean().item()
             types = sorted(set(typed.shape_type[perm.long().to(dev)][
@@ -422,14 +441,16 @@ def main() -> int:
             log(f"phase 3d: typed scene {counts} mt {int(use_mt)} gate "
                 f"{int(gate)}: brute max-abs dt {dt:.3g}, row agree "
                 f"{agree:.6f}; types hit {types}")
-            check(dt == 0 and agree == 1.0 and 1 in types,
+            check(torch.equal(tk, tp) and torch.equal(rk, rp)
+                  and 1 in types,
                   "brute_kernel disagrees with brute_plain on the typed "
                   "scene")
     for name in ("packet_kernel", "occlusion_kernel", "brute_kernel"):
         held[name].append(
             f"phase 3d: {n_q} random and camera rays (a tenth parked, 8 "
             "NaN, 8 of zero direction) x barycentric and MT x "
-            + ("gate on and off" if name == "brute_kernel" else
+            + ("gate on and off (gate on also with one run a row, "
+               "staged in chunks)" if name == "brute_kernel" else
                "t_cull on and off") + ", scenes 1 and 2"
             + ("" if name == "occlusion_kernel" else
                " and a scene with a plane"))
@@ -884,22 +905,55 @@ def main() -> int:
     k1_bound, k1_by = k1[1]["bound_ms"], k1[1]["bound_by"]
     sc, lin, split, tab = scenes[1]
 
-    o, d = queries[1][0], queries[1][1]
-    k2_ms = cuda_ms(lambda: closest_hit(split, o, d, cfg.tri_mode),
-                    TIMED_FRAMES)
-    k2_dms = device_ms(lambda: closest_hit(split, o, d, cfg.tri_mode),
-                       TIMED_FRAMES)
-    k2_plain_ms = cuda_ms(lambda: closest_hit_plain(split, o, d,
-                                                    cfg.tri_mode), 1)
-    stats.zero_()
-    closest_hit(split, o, d, cfg.tri_mode, stats=stats)
-    k2_bound, _, k2_by = bound_ms(stats, split, out_bytes=o.shape[0] * 8,
-                                  in_bytes=table_bytes(split)
-                                  + o.numel() * 8)
-    log(f"closest_hit_kernel {k2_ms:.3f} ms (device {fmt(k2_dms)}), "
-        f"closest_hit_plain "
-        f"{k2_plain_ms:.1f} ms ({o.shape[0]} primary rays, scene 1); tests "
-        f"{stats.tolist()}, bound {k2_bound:.4f} ms")
+    # closest_hit_kernel on each frame's primary rays (closest) and on the
+    # light rays of their hits (occlusion against the light distance)
+    k2 = {}
+    st5 = torch.zeros(5, dtype=torch.int64, device=dev)
+    for which, (sc, lin, split, tab) in scenes.items():
+        o, d, _, _, _, lit_o, lit_d, dist, _ = queries[which]
+        for mode, (oq, dq, lim) in (("closest", (o, d, None)),
+                                    ("occlusion", (lit_o, lit_d, dist))):
+            def run(st=None):
+                return closest_hit(split, oq, dq, cfg.tri_mode, max_t=lim,
+                                   stats=st)
+            n = oq.shape[0]
+            ms = cuda_ms(run, TIMED_FRAMES)
+            dms = device_ms(run, TIMED_FRAMES)
+            plain_ms = cuda_ms(lambda: closest_hit_plain(
+                split, oq, dq, cfg.tri_mode, max_t=lim), 1)
+            # the timed call's result on every 97th ray, against the plain
+            # version on those rays
+            st5.zero_()
+            got = run(st5)
+            sub = torch.arange(0, n, 97, device=dev)
+            want = closest_hit_plain(split, oq[sub], dq[sub], cfg.tri_mode,
+                                     max_t=None if lim is None else lim[sub])
+            check(all(torch.equal(a[sub], b) for a, b in zip(got, want)),
+                  f"scene {which}: closest_hit_kernel ({mode}) disagrees "
+                  "with closest_hit_plain on the timed rays")
+            bound, _, by = bound_ms(st5[:3], split, out_bytes=n * 8,
+                                    in_bytes=table_bytes(split) + n * (
+                                        24 if lim is None else 28))
+            lanes, (w_node, w_row) = st5.tolist()[:3], st5.tolist()[3:]
+            warps = -(-n // 32)
+            k2.setdefault(which, {})[mode] = dict(
+                ms=ms, device_ms=dms, plain_ms=plain_ms, rays=n,
+                bound_ms=bound, bound_by=by, tests=lanes,
+                node_steps_per_warp=w_node / warps,
+                row_steps_per_warp=w_row / warps,
+                simd_efficiency=lanes[2] / max(32 * w_row, 1))
+            log(f"scene {which}: closest_hit_kernel {mode} {ms:.3f} ms "
+                f"(device {fmt(dms)}), closest_hit_plain {plain_ms:.1f} ms "
+                f"({n} {'primary' if lim is None else 'light'} rays); "
+                f"tests {lanes} (pre, node, triangle), node / row steps a "
+                f"warp {w_node / warps:.2f} / {w_row / warps:.2f}, SIMD "
+                f"efficiency {lanes[2] / max(32 * w_row, 1):.3f}; bound "
+                f"{bound:.4f} ms ({by})")
+    held["closest_hit_kernel"].append(
+        "timing: every 97th of the timed rays (the primary rays, closest; "
+        "the light rays of their hits, occlusion), scenes 1 and 2: "
+        "bit-exact")
+    k2_top = k2[1]["closest"]
 
     # the hybrid and per-bounce frames
     hyb_ms, pb_ms = {}, {}
@@ -1075,6 +1129,7 @@ def main() -> int:
         tree = trees[which, True]
         rows_g = brute_rows[which, True]
         perm, counts = brute.sort_scene_by_type(sc.flat)
+        runs_g = brute.box_runs(rows_g, counts)
         sub = torch.randint(0, o.shape[0], (N_RAYS,), generator=gen).to(dev)
         lsub = torch.randint(0, lit_o.shape[0], (N_RAYS,),
                              generator=gen).to(dev)
@@ -1101,16 +1156,40 @@ def main() -> int:
                 lit_o.shape[0], tbytes + lit_o.shape[0] * 28,
                 lit_o.shape[0]),
             "brute_kernel": (
-                lambda: brute.brute_hit(rows_g, counts, o, d, False, True),
+                lambda: brute.brute_hit(rows_g, counts, o, d, False, True,
+                                        runs_g),
                 lambda: brute.brute_plain(rows_g, counts, o_s, d_s, False,
                                           True),
-                None, o.shape[0],
-                rows_g.numel() * 4 + o.shape[0] * 24, o.shape[0] * 8)}
+                lambda st: brute.brute_hit(rows_g, counts, o, d, False, True,
+                                           runs_g, stats=st),
+                o.shape[0], (rows_g.numel() + runs_g.numel()) * 4
+                + o.shape[0] * 24, o.shape[0] * 8)}
         for name, (run, plain, with_stats, n, in_b, out_b) in runs.items():
             ms = cuda_ms(run, TIMED_FRAMES)
             dms = device_ms(run, TIMED_FRAMES)
             plain_ms = cuda_ms(plain, 1)
-            if with_stats is not None:
+            extra = {}
+            if name == "brute_kernel":
+                # the gate's work: a gate per run, and the row tests of the
+                # rows whose box the ray hits, counted here in PyTorch
+                stats.zero_()
+                with_stats(stats)
+                gates, lane_rows, w_row = stats.tolist()
+                need = needed_rows(runs_g, counts, o, d)
+                check(sum(need) == lane_rows, "brute_kernel's row tests are "
+                      "not the rows whose leaf box the ray hits")
+                ops = gates * OPS_GATE + sum(
+                    c * OPS_ROW[k] for k, c in enumerate(need))
+                every = n * sum(c * OPS_ROW[k] for k, c in enumerate(counts))
+                tests = dict(runs=runs_g.shape[0], gates=gates,
+                             row_tests=lane_rows, row_tests_by_type=need,
+                             warp_row_steps=w_row,
+                             row_steps_per_warp=w_row / -(-n // 32),
+                             simd_efficiency=lane_rows / max(32 * w_row, 1),
+                             every_row_tests=n * sum(counts))
+                extra["bound_ms_every_row"] = bound_of(
+                    in_bytes=in_b, out_bytes=out_b, ops=every)[0]
+            else:
                 st5 = torch.zeros(5, dtype=torch.int64, device=dev)
                 st_ = st5 if name == "packet_kernel" else stats
                 st_.zero_()
@@ -1129,17 +1208,15 @@ def main() -> int:
                         node_steps_per_warp=w_node / warps,
                         row_steps_per_warp=w_row / warps,
                         simd_efficiency=(other + tri) / max(32 * w_row, 1))
-            else:
-                ops = n * sum(c * OPS_ROW[k] for k, c in enumerate(counts))
-                tests = dict(rows=n * sum(counts))
             bound, by = bound_of(in_bytes=in_b, out_bytes=out_b, ops=ops)
             k678.setdefault(name, {})[which] = dict(
                 ms=ms, device_ms=dms, plain_ms=plain_ms, plain_rays=N_RAYS,
-                rays=n, bound_ms=bound, bound_by=by, tests=tests)
+                rays=n, bound_ms=bound, bound_by=by, tests=tests, **extra)
             log(f"scene {which}: {name} {ms:.3f} ms (device {fmt(dms)}) on "
                 f"{n} rays, plain "
                 f"{plain_ms:.1f} ms on {N_RAYS}; tests {tests}, bound "
-                f"{bound:.4f} ms ({by})")
+                f"{bound:.4f} ms ({by})"
+                + "".join(f", {k} {v:.4f}" for k, v in extra.items()))
 
         ms = {}
         for name in ("packet", "packet+occlusion", "brute"):
@@ -1269,9 +1346,12 @@ def main() -> int:
              source="raytracer_tpu_torch/csrc/raytrace.cu",
              replaces="raytracer_tpu/render/pallas_split.py:961",
              launches=total["closest_hit_kernel"],
-             max_abs_err=err["closest_hit_kernel"], ms=k2_ms,
-             device_ms=k2_dms, plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by,
-             library_ms=None, held_by=held["closest_hit_kernel"]),
+             max_abs_err=err["closest_hit_kernel"], ms=k2_top["ms"],
+             device_ms=k2_top["device_ms"], plain_ms=k2_top["plain_ms"],
+             bound_ms=k2_top["bound_ms"], bound_by=k2_top["bound_by"],
+             library_ms=None,
+             per_scene={str(k): v for k, v in k2.items()},
+             held_by=held["closest_hit_kernel"]),
         dict(name="fused_kernel", route="cuda",
              source="raytracer_tpu_torch/csrc/raytrace.cu",
              replaces="raytracer_tpu/render/pallas_split.py:905",
@@ -1307,6 +1387,8 @@ def main() -> int:
             bound_by=top["bound_by"], library_ms=None,
             per_scene={str(k): v for k, v in k678[name].items()},
             held_by=held[name]))
+        if "bound_ms_every_row" in top:
+            rows[-1]["bound_ms_every_row"] = top["bound_ms_every_row"]
     rows[-3]["frame_ms"] = {str(k): v for k, v in alt_ms.items()}
     rows[-3]["frames_vs_wavefront_and_one_launch"] = alt_err
     rows[-3]["frame_device_idle"] = idle
@@ -1383,6 +1465,36 @@ def typed_scene(dev):
     b.add_triangle((1, -1, -3), (2, -1, -3.5), (1.5, 0, -3.2))
     b.add_triangle((-1, 1, -5), (0, 1, -5), (-0.5, 1, -5))
     return b.build(device=dev)
+
+
+def single_runs(rows):
+    """A run table of brute_kernel with one run a row: not maximal, but
+    every run still holds rows of one box and one type."""
+    import torch
+    from raytracer_tpu_torch.render import brute
+    n = rows.shape[0]
+    idx = torch.arange(n, device=rows.device, dtype=torch.float32)
+    return torch.cat([rows[:, brute.F_B0X:brute.PACK_EXT], idx[:, None],
+                      torch.ones_like(idx)[:, None]], dim=1).contiguous()
+
+
+def needed_rows(runs, counts, o, d, chunk=8192):
+    """Row tests that brute_kernel's gate leaves, by shape type: summed
+    over the rays, the rows of each run whose box the ray hits (box_gate's
+    slab test, in PyTorch); a ray of zero direction needs none."""
+    import torch
+    from raytracer_tpu_torch.geom import rowwise
+    keep = (d != 0).any(1)
+    o, d = o[keep], d[keep]
+    start, cnt = runs[:, 6].long(), runs[:, 7].long()
+    ends = torch.tensor(counts, device=runs.device).cumsum(0)
+    typ = sum((start >= ends[k]).long() for k in range(3))
+    hits = torch.zeros(runs.shape[0], dtype=torch.int64, device=runs.device)
+    for c in range(0, o.shape[0], chunk):
+        oc, dc = o[c:c + chunk, None], d[c:c + chunk, None]
+        tmin, tmax = rowwise.slab(runs[None, :, :6], oc, 1.0 / dc)
+        hits += ((tmax >= tmin) & (tmax > 0)).sum(0)
+    return [int((hits * cnt)[typ == k].sum()) for k in range(4)]
 
 
 def row_ops_other(flat):

@@ -9,8 +9,14 @@
 //   the image-order pixel index, from which the background is re-derived;
 //   it may emit again). The hybrid launches it on a re-sorted ray stream.
 // closest_hit_kernel replaces raytracer_tpu/render/pallas_split.py::
-//   _split_kernel / _split_body (961-964, 343-651): one thread per ray,
-//   closest hit (t, gid) or occlusion against a per-ray limit.
+//   _split_kernel / _split_body (961-964, 343-651): closest hit (t, gid) or
+//   occlusion against a per-ray limit. A warp walks its 32 rays in
+//   lockstep (raytrace.cuh::split_walk): each lane runs the pre-pass over
+//   the spheres, planes and walls alone, PRE_ILP rows before its in-order
+//   updates, then the warp walks the triangle tree under one pointer with
+//   per-lane culling, a leaf's rows staged in shared memory by cp.async
+//   (32 rows a chunk, double buffered), ROW_ILP rows a lane before its
+//   updates; bit for bit the per-thread walk (closest_walk, occluded).
 // fused_kernel replaces pallas_split.py::_fused_kernel (905-958): one
 //   thread per ray, the closest hit with normals and then the shadow walk
 //   toward the light, so a bounce of the per-bounce route is one launch.
@@ -40,11 +46,12 @@
 //   one thread per ray walks the tree alone (packet_walk), returning at
 //   the first inner hit below max_t.
 // brute_kernel replaces raytracer_tpu/render/pallas_kernel.py::
-//   _closest_hit_kernel (95-243): one thread per ray runs four typed loops
-//   over every row in type-sorted order, optionally gated by each row's
-//   leaf box. Every thread of a warp reads the same row, so the read-only
-//   cache broadcasts it; staging the rows in shared memory is left for
-//   later.
+//   _closest_hit_kernel (95-243): every row in type-sorted order, optionally
+//   gated by each row's leaf box. The gate comes first, once per run of
+//   rows with one box (raytrace.cuh::brute_walk): the block stages the run
+//   table in shared memory by cp.async, each lane gates its ray against
+//   each run's box and the warp tests only the runs some lane passes,
+//   ROW_ILP rows a lane before its updates.
 //
 // What bounds them on this card: the walks are bound by operations, not
 // bytes. The tables (0.25 MB for scene 1, 0.85 MB for scene 2) stay in L2
@@ -60,12 +67,14 @@
 // an operations bound of 0.047 ms (scene 1: 0.10 ms against 0.0046 ms of
 // bytes; NVIDIA H100 80GB HBM3 at 700 W, device time from
 // chip_smoke.py), held back by the latency of each lane's chain of row
-// tests more than by issue slots. resolve_kernel does no walk: it moves 16
+// tests more than by issue slots; closest_hit_kernel's split walk keeps
+// its lanes in step the same way. resolve_kernel does no walk: it moves 16
 // bytes in and 44 out per ray and is bound by bytes (0.0087 ms on 480,000
 // rays); it takes 0.0100-0.0103 ms on the device, 0.85-0.87 of that bound
 // (index_select of the rows alone: 0.021-0.022 ms). brute_kernel is bound
-// by operations too (every ray tests every shape) and has no divergence
-// but the typed loops' early outs.
+// by operations: its gates (one a run, 985-1,059 a ray on scenes 1 and 2)
+// and the row tests of the runs whose box some lane of the warp hits
+// (0.9% of the rows on scene 1, 5.9% on scene 2, tools/host_check.py).
 //
 // Each launcher returns cudaGetLastError() after the launch; the Python
 // wrapper raises if it is not 0. Launches go on the caller's stream and
@@ -137,29 +146,6 @@ wholeframe_kernel(Tables s, const float* __restrict__ tab,
     const float v[9] = {st.ox, st.oy, st.oz, st.dx, st.dy, st.dz,
                         st.atr, st.atg, st.atb};
     for (int k = 0; k < 9; ++k) state[k * (long long)n + i] = v[k];
-  }
-  add_stats(stats, c);
-}
-
-template <int TRI, bool OCCLUSION>
-__global__ void __launch_bounds__(BLOCK)
-closest_hit_kernel(Tables s, const float* __restrict__ o,
-                   const float* __restrict__ d,
-                   const float* __restrict__ limit, int n,
-                   float* __restrict__ t_out, int* __restrict__ gid_out,
-                   unsigned long long* stats) {
-  int i = blockIdx.x * BLOCK + (int)threadIdx.x;
-  if (i >= n) return;
-  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
-                   d[3 * i + 1], d[3 * i + 2]);
-  Counts c = {0u, 0u, 0u};
-  if (OCCLUSION) {
-    t_out[i] = occluded<TRI>(s, r, limit[i], c) ? 0.0f : INF;
-    gid_out[i] = -1;
-  } else {
-    Hit h = closest_walk<TRI, false>(s, G_GID, T_GID, r, INF, c);
-    t_out[i] = h.t;
-    gid_out[i] = (int)h.id;
   }
   add_stats(stats, c);
 }
@@ -325,25 +311,99 @@ occlusion_kernel(Tree s, const float* __restrict__ o,
   add_stats(stats, c);
 }
 
-// rows: (n_sph + n_pl + n_wall + n_tri, ROW_EXT_W) in type-sorted order.
-struct TypeCounts {
-  int n[4];
+constexpr int SPLIT_BLOCK = 128, SPLIT_WARPS = SPLIT_BLOCK / 32;
+
+// closest_hit_kernel: the split walk (raytrace.cuh::split_walk), one warp
+// of 32 rays in lockstep. Every thread of a warp stays to the end: a thread
+// past n is a lane that never walks. stats: the lanes' pre-pass, node and
+// triangle tests (0-2) and the warps' node and row steps (3, 4).
+template <int TRI, bool OCCLUSION>
+__global__ void __launch_bounds__(SPLIT_BLOCK)
+closest_hit_kernel(Tables s, const float* __restrict__ o,
+                   const float* __restrict__ d,
+                   const float* __restrict__ limit, int n,
+                   float* __restrict__ t_out, int* __restrict__ gid_out,
+                   unsigned long long* stats) {
+  __shared__ __align__(16) float rows_buf[SPLIT_WARPS][2 * SPLIT_CHUNK_FLOATS];
+  int i = blockIdx.x * SPLIT_BLOCK + (int)threadIdx.x;
+  bool live = i < n;
+  Ray r = make_ray(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
+  float lim = INF;
+  if (live) {
+    r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                 d[3 * i + 1], d[3 * i + 2]);
+    if (OCCLUSION) lim = limit[i];
+  }
+  SplitLane a;
+  split_lane_init(a, s, live, r, lim);
+  WarpCounts wc = {0u, 0u};
+  split_walk<CardWarp, TRI, OCCLUSION>(s, &a, rows_buf[threadIdx.x >> 5], wc);
+  if (live) {
+    if (OCCLUSION) {
+      t_out[i] = a.occ ? 0.0f : INF;
+      gid_out[i] = -1;
+    } else {
+      t_out[i] = a.t;
+      gid_out[i] = (int)a.id;
+    }
+    add_stats(stats, a.c);
+  }
+  if (stats != nullptr && (threadIdx.x & 31) == 0) {
+    atomicAdd(stats + 3, (unsigned long long)wc.node);
+    atomicAdd(stats + 4, (unsigned long long)wc.row);
+  }
+}
+
+// brute_kernel's lane policy: CardWarp's votes, with the run table staged
+// by the whole block (16 bytes a thread in turn) behind block barriers.
+struct CardBlock : CardWarp {
+  __device__ static __forceinline__ void sync() { __syncthreads(); }
+  __device__ static __forceinline__ void stage(float* dst, const float* src,
+                                               int n16) {
+    for (int q = (int)threadIdx.x; q < n16; q += (int)blockDim.x) {
+      unsigned s = (unsigned)__cvta_generic_to_shared(dst + 4 * q);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                   "l"(src + 4 * q)
+                   : "memory");
+    }
+  }
 };
 
+// brute_kernel: one ray a thread, BR_BLOCK threads a block; each block
+// stages the run table, RUN_CHUNK runs (2 KB) a chunk, double buffered.
+// On an H100, blocks of 32-256 threads and chunks of 64-768 runs were
+// within a few percent of each other, and persistent blocks over several
+// ray tiles were slower (tools/kernel_ab.py; PERF.md).
+constexpr int BR_BLOCK = 128, RUN_CHUNK = 64;
+
+// stats: the lanes' gate tests and row tests (0, 1) and the warps' row
+// steps (2).
 template <bool MT, bool GATE>
-__global__ void __launch_bounds__(BLOCK)
-brute_kernel(const float* __restrict__ rows, TypeCounts counts,
-             const float* __restrict__ o, const float* __restrict__ d, int n,
-             float* __restrict__ t_out, int* __restrict__ row_out) {
-  int i = blockIdx.x * BLOCK + (int)threadIdx.x;
-  if (i >= n) return;
-  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
-                   d[3 * i + 1], d[3 * i + 2]);
-  float t;
-  int row;
-  brute_ray<MT, GATE>(rows, counts.n, r, t, row);
-  t_out[i] = t;
-  row_out[i] = row;
+__global__ void __launch_bounds__(BR_BLOCK)
+brute_kernel(Runs s, const float* __restrict__ o,
+             const float* __restrict__ d, int n, float* __restrict__ t_out,
+             int* __restrict__ row_out, unsigned long long* stats) {
+  __shared__ __align__(16) float runs_buf[2 * RUN_CHUNK * RUN_W];
+  int i = blockIdx.x * BR_BLOCK + (int)threadIdx.x;
+  bool live = i < n;
+  Ray r = make_ray(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
+  if (live)
+    r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                 d[3 * i + 1], d[3 * i + 2]);
+  BruteLane a;
+  brute_lane_init(a, live, r);
+  WarpCounts wc = {0u, 0u};
+  brute_walk<CardBlock, MT, GATE>(s, &a, runs_buf, wc);
+  if (live) {
+    t_out[i] = a.t;
+    row_out[i] = a.row;
+  }
+  if (stats != nullptr) {
+    atomicAdd(stats + 0, (unsigned long long)a.gates);
+    atomicAdd(stats + 1, (unsigned long long)a.tests);
+    if ((threadIdx.x & 31) == 0)
+      atomicAdd(stats + 2, (unsigned long long)wc.row);
+  }
 }
 
 }  // namespace rt
@@ -397,10 +457,10 @@ int rt_closest_hit(const int* leaf_start, const int* leaf_count,
                    unsigned long long* stats, void* stream) {
   rt::Tables s = {leaf_start, leaf_count, skip, nodes, pre, tri,
                   m, n_other, n_sph};
-  int grid = (n + rt::BLOCK - 1) / rt::BLOCK;
+  int grid = (n + rt::SPLIT_BLOCK - 1) / rt::SPLIT_BLOCK;
   cudaStream_t st = (cudaStream_t)stream;
 #define RT_LAUNCH(TRI, OCC)                                               \
-  rt::closest_hit_kernel<TRI, OCC><<<grid, rt::BLOCK, 0, st>>>(            \
+  rt::closest_hit_kernel<TRI, OCC><<<grid, rt::SPLIT_BLOCK, 0, st>>>(      \
       s, o, d, limit, n, t_out, gid_out, stats)
   if (tri_mode == rt::TRI_RAW) {
     if (occlusion) RT_LAUNCH(rt::TRI_RAW, true); else RT_LAUNCH(rt::TRI_RAW, false);
@@ -500,15 +560,18 @@ int rt_packet(const int* leaf_start, const int* leaf_count, const int* skip,
   return (int)cudaGetLastError();
 }
 
-int rt_brute(const float* rows, int n_sph, int n_pl, int n_wall, int n_tri,
-             const float* o, const float* d, int n, float* t_out,
-             int* row_out, int use_mt, int gate, void* stream) {
-  rt::TypeCounts counts = {{n_sph, n_pl, n_wall, n_tri}};
-  int grid = (n + rt::BLOCK - 1) / rt::BLOCK;
+// runs: the run table of rows (render/brute.py::box_runs), n_runs < 2^24.
+int rt_brute(const float* rows, const float* runs, int n_runs, int n_sph,
+             int n_pl, int n_wall, const float* o, const float* d, int n,
+             float* t_out, int* row_out, int use_mt, int gate,
+             unsigned long long* stats, void* stream) {
+  rt::Runs s = {rows, runs, n_runs, rt::RUN_CHUNK,
+                {n_sph, n_sph + n_pl, n_sph + n_pl + n_wall}};
+  int grid = (n + rt::BR_BLOCK - 1) / rt::BR_BLOCK;
   cudaStream_t st = (cudaStream_t)stream;
 #define RT_LAUNCH(MT, GATE)                                               \
-  rt::brute_kernel<MT, GATE><<<grid, rt::BLOCK, 0, st>>>(                 \
-      rows, counts, o, d, n, t_out, row_out)
+  rt::brute_kernel<MT, GATE><<<grid, rt::BR_BLOCK, 0, st>>>(              \
+      s, o, d, n, t_out, row_out, stats)
   if (use_mt) {
     if (gate) RT_LAUNCH(true, true); else RT_LAUNCH(true, false);
   } else {

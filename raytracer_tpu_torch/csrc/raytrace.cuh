@@ -758,6 +758,93 @@ struct WarpCounts {
 
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 
+// The staging loop of the lockstep walks: the n rows of width floats at
+// src go into buf (two buffers of chunk rows, 16-byte aligned) chunk by
+// chunk, the next chunk's copy in flight while the current one is read,
+// and body(cur, k0, nr) runs on each chunk once it is in place for every
+// lane (rows k0 .. k0 + nr - 1 at cur). W::sync before and after body,
+// so that no lane reads a buffer before it lands or while it is refilled.
+// A body that returns false ends the loop: the copy in flight is waited
+// for and the rest is not read.
+template <class W, class Body>
+__device__ __forceinline__ void staged_chunks(const float* src, int n,
+                                              int chunk, int width,
+                                              float* buf, Body body) {
+  int nch = (n + chunk - 1) / chunk;
+  if (nch == 0) return;
+  int cf = chunk * width;
+  W::stage(buf, src, imin(n, chunk) * width / 4);
+  W::commit();
+  for (int ci = 0; ci < nch; ++ci) {
+    int k0 = ci * chunk;
+    if (ci + 1 < nch) {
+      int k1 = k0 + chunk;
+      W::stage(buf + ((ci + 1) & 1) * cf, src + (long long)k1 * width,
+               imin(n - k1, chunk) * width / 4);
+      W::commit();
+      W::wait_but_one();
+    } else {
+      W::wait_all();
+    }
+    W::sync();   // the chunk is in place for every lane
+    bool more = body(buf + (ci & 1) * cf, k0, imin(n - k0, chunk));
+    W::sync();   // every lane is done with the chunk before it is refilled
+    if (!more) {
+      if (ci + 1 < nch) W::wait_all();
+      return;
+    }
+  }
+}
+
+// The skip-pointer walk of one warp in lockstep: one pointer ptr for the
+// warp, a resume index per lane (a lane probes node ptr once ptr has
+// reached it, and resumes at the node's skip pointer where its probe
+// fails), one vote a node. A lane probes where the node's slab is hit and
+// cull(a, box, tmin) holds (box: the node's first NB floats); a leaf that
+// some lane probes goes to leaf(st, cnt) for its rows st .., which
+// returns false to end the walk. A lane of resume index m walks not. LaneT
+// has r, c, resume and probe; T has nodes, leaf_start, leaf_count, skip
+// and m. The loop's control flow depends only on ptr, the tables and the
+// votes, so every vote is reached by all 32 threads.
+template <class W, int NB, class T, class LaneT, class Cull, class Leaf>
+__device__ __forceinline__ void lockstep_walk(const T& s, LaneT* ln,
+                                              WarpCounts& wc, Cull cull,
+                                              Leaf leaf) {
+  bool vote[W::N];
+  for (int l = 0; l < W::N; ++l) vote[l] = ln[l].resume == 0;
+  if (!W::any(vote)) return;
+  int ptr = 0;
+  while (ptr < s.m) {
+    const float* b = s.nodes + ptr * NODE_W;
+    float box[NB];
+    for (int q = 0; q < NB; ++q) box[q] = ld(b + q);
+    int cnt = ldi(s.leaf_count + ptr);
+    int nxt = ldi(s.skip + ptr);
+    for (int l = 0; l < W::N; ++l) {
+      LaneT& a = ln[l];
+      a.probe = false;
+      if (a.resume <= ptr) {
+        float tmin, tmax;
+        slab<Plain>(box, a.r, tmin, tmax);
+        a.c.node += 1;
+        a.probe = (tmax >= tmin) && (tmax > 0.0f) && cull(a, box, tmin);
+        if (!a.probe) a.resume = nxt;
+      }
+      vote[l] = a.probe;
+    }
+    wc.node += 1;
+    if (!W::any(vote)) {
+      ptr = nxt;
+    } else if (cnt == 0) {
+      ptr += 1;
+    } else {
+      bool more = leaf(ldi(s.leaf_start + ptr), cnt);
+      ptr = nxt;
+      if (!more) return;
+    }
+  }
+}
+
 __device__ __forceinline__ void lane_init(Lane& a, const Tree& s, bool live,
                                           const Ray& r) {
   a.r = r;
@@ -825,118 +912,457 @@ __device__ __forceinline__ void warp_rows(const float* p, int row0,
 template <class W, bool MT>
 __device__ __forceinline__ void warp_leaf(const float* src, int st, int cnt,
                                           Lane* ln, float* buf) {
-  int nch = (cnt + CHUNK_ROWS - 1) / CHUNK_ROWS;
-  W::stage(buf, src, imin(cnt, CHUNK_ROWS) * ROW_W / 4);
-  W::commit();
-  for (int ci = 0; ci < nch; ++ci) {
-    int j0 = ci * CHUNK_ROWS;
-    if (ci + 1 < nch) {
-      int j1 = j0 + CHUNK_ROWS;
-      W::stage(buf + ((ci + 1) & 1) * CHUNK_FLOATS, src + j1 * ROW_W,
-               imin(cnt - j1, CHUNK_ROWS) * ROW_W / 4);
-      W::commit();
-      W::wait_but_one();
-    } else {
-      W::wait_all();
-    }
-    W::sync();   // the chunk is in place for every lane
-    const float* cur = buf + (ci & 1) * CHUNK_FLOATS;
-    int nr = imin(cnt - j0, CHUNK_ROWS);
+  staged_chunks<W>(src, cnt, CHUNK_ROWS, ROW_W, buf,
+                   [&](const float* cur, int j0, int nr) {
     int j = 0;
     for (; j + ROW_ILP <= nr; j += ROW_ILP)
       warp_rows<W, MT, ROW_ILP>(cur + j * ROW_W, st + j0 + j, ln);
     for (; j < nr; ++j) warp_rows<W, MT, 1>(cur + j * ROW_W, st + j0 + j, ln);
-    W::sync();   // every lane is done with the chunk before it is refilled
-  }
+    return true;
+  });
 }
 
 // The closest hit of the W::N lanes ln (of one warp): each lane's t (INF
 // on a miss) and row (0 on a miss), as packet_walk<MT, CULL, false> gives
-// them. buf: this warp's staging buffer.
+// them. With CULL a lane probes a node that is not cullable (column 6 is
+// 0) or that it enters at tmin <= its t. buf: this warp's staging buffer.
 template <class W, bool MT, bool CULL>
 __device__ __forceinline__ void warp_walk(const Tree& s, Lane* ln,
                                           float* buf, WarpCounts& wc) {
-  bool vote[W::N];
-  for (int l = 0; l < W::N; ++l) vote[l] = ln[l].resume == 0;
-  if (!W::any(vote)) return;
-  int ptr = 0;
-  while (ptr < s.m) {
-    const float* b = s.nodes + ptr * NODE_W;
-    float box[7];
-    for (int q = 0; q < 7; ++q) box[q] = ld(b + q);
-    int cnt = ldi(s.leaf_count + ptr);
-    int nxt = ldi(s.skip + ptr);
-    for (int l = 0; l < W::N; ++l) {
-      Lane& a = ln[l];
-      a.probe = false;
-      if (a.resume <= ptr) {
-        float tmin, tmax;
-        slab<Plain>(box, a.r, tmin, tmax);
-        a.c.node += 1;
-        bool probe = (tmax >= tmin) && (tmax > 0.0f);
-        if (CULL) probe = probe && (box[6] == 0.0f || tmin <= a.t);
-        a.probe = probe;
-        if (!probe) a.resume = nxt;
+  lockstep_walk<W, 7>(
+      s, ln, wc,
+      [](const Lane& a, const float* box, float tmin) {
+        return !CULL || box[6] == 0.0f || tmin <= a.t;
+      },
+      [&](int st, int cnt) {
+        warp_leaf<W, MT>(s.rows + (long long)st * ROW_W, st, cnt, ln, buf);
+        wc.row += cnt;
+        return true;
+      });
+}
+
+// ---- brute_kernel's walk over box runs ---------------------------------
+//
+// _closest_hit_kernel (pallas_kernel.py:95): the first type-sorted row of
+// least t among the inner hits, each gated by its row's leaf box with
+// GATE; t INF and row 0 on a miss. The gate is a logical AND with the row
+// test, and consecutive type-sorted rows often share a leaf box, so the
+// walk gates first, once per run of a run table (render/brute.py::
+// box_runs: maximal ranges of consecutive rows of one type with
+// bitwise-equal box columns, each as its box, first row and row count),
+// and tests only the rows whose gate passes. Per run, each lane gates its
+// own ray against the box (RUN_ILP runs at a time, then one vote for the
+// group); the warp skips a run that no lane passes, and otherwise the
+// passing lanes test its rows, ROW_ILP at a time: every test first, then
+// the strict t < t_best updates in row order. A run holds one type, so its
+// tests need no type branch. Rows are visited in type-sorted order and a
+// row is skipped only where its gate fails, so t and the row, ties
+// included, are the plain version's (brute.py::brute_plain). Without GATE
+// every lane tests every row of every run (the runs are then the type
+// segments).
+//
+// The run table is staged in shared memory, chunk by chunk (chunk runs, 32
+// bytes each) into one of two buffers, by the whole block (W::stage,
+// W::sync is a block barrier), so every warp visits every run and control
+// flow stays uniform across the block. W is the lane policy as for
+// warp_walk; the host check runs one 32-lane warp as the block.
+constexpr int RUN_W = 8;     // box min xyz, max xyz, first row, row count
+constexpr int RUN_ILP = 8;   // gates a lane evaluates before the warp votes
+
+// The rows, the run table and where each type's rows end (spheres,
+// planes, walls; triangles to the end).
+struct Runs {
+  const float* rows;   // (n_rows, ROW_EXT_W), type-sorted
+  const float* runs;   // (n_runs, RUN_W)
+  int n_runs, chunk;   // runs per staged chunk
+  int end[3];
+};
+
+// One lane of the brute walk: its ray, best t and row, whether it walks,
+// its gate and row tests. A thread past n never walks, and neither does a
+// ray whose direction is exactly zero: it hits no shape (packet_walk's
+// argument), but its slabs are +-inf, so where its origin lies below a box
+// on every axis it passes the gate (the Whitted loop's shadow rays of
+// missed lanes are such rays).
+struct BruteLane {
+  Ray r;
+  float t;
+  int row;
+  bool walks;
+  unsigned gates, tests;
+};
+
+__device__ __forceinline__ void brute_lane_init(BruteLane& a, bool live,
+                                                const Ray& r) {
+  a.r = r;
+  a.t = INF;
+  a.row = 0;
+  a.walks = live && !(r.dx == 0.0f && r.dy == 0.0f && r.dz == 0.0f);
+  a.gates = 0u;
+  a.tests = 0u;
+}
+
+// min / max that give NaN where either operand is NaN, in one instruction
+// on the card (PTX min.NaN, sm_80 and later); jmin / jmax elsewhere. They
+// may differ from jmin / jmax in the sign of a zero only, which no compare
+// of the gate sees.
+#ifdef __CUDA_ARCH__
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+#else
+__device__ __forceinline__ float nan_min(float a, float b) { return jmin(a, b); }
+__device__ __forceinline__ float nan_max(float a, float b) { return jmax(a, b); }
+#endif
+
+// box_gate of a staged run's box b (32-byte aligned): the same slab
+// arithmetic and decision. The card reads the box as two 16-byte loads.
+__device__ __forceinline__ bool run_gate(const float* b, const Ray& r) {
+#ifdef __CUDA_ARCH__
+  float4 lo = *reinterpret_cast<const float4*>(b);
+  float4 hi = *reinterpret_cast<const float4*>(b + 4);
+  float b0 = lo.x, b1 = lo.y, b2 = lo.z, b3 = lo.w, b4 = hi.x, b5 = hi.y;
+#else
+  float b0 = b[0], b1 = b[1], b2 = b[2], b3 = b[3], b4 = b[4], b5 = b[5];
+#endif
+  float tx0 = (b0 - r.ox) * r.ix;
+  float tx1 = (b3 - r.ox) * r.ix;
+  float ty0 = (b1 - r.oy) * r.iy;
+  float ty1 = (b4 - r.oy) * r.iy;
+  float tz0 = (b2 - r.oz) * r.iz;
+  float tz1 = (b5 - r.oz) * r.iz;
+  float tmin = nan_max(nan_max(nan_min(tx0, tx1), nan_min(ty0, ty1)),
+                       nan_min(tz0, tz1));
+  float tmax = nan_min(nan_min(nan_max(tx0, tx1), nan_max(ty0, ty1)),
+                       nan_max(tz0, tz1));
+  return (tmax >= tmin) && (tmax > 0.0f);
+}
+
+// The union test (row_intersect) of a row of type TYP, with & for && (no
+// branches, so that the tests of several rows interleave).
+template <int TYP, bool MT>
+__device__ __forceinline__ bool brute_test(const float* p, const Ray& r,
+                                           float& t) {
+  if (TYP == SPHERE) return pre_sphere(p, r, t);
+  if (TYP == TRIANGLE && MT) return mt_test(p + 9, r, t);
+  float hx, hy, hz;
+  bool v_pl = plane_hit(p + 5, r, t, hx, hy, hz);
+  if (TYP == PLANE) return v_pl;
+  if (TYP == WALL) return v_pl & wall_inside(p + 9, hx, hy, hz);
+  return v_pl & bary_inside(p + 9, hx, hy, hz);
+}
+
+// The lanes that pass test the U rows j .. of type TYP: every test first,
+// then the updates in row order.
+template <class W, int TYP, bool MT, int U>
+__device__ __forceinline__ void brute_rows(const float* rows, int j,
+                                           BruteLane* ln, const bool* pass) {
+  const float* p = rows + (long long)j * ROW_EXT_W;
+  for (int l = 0; l < W::N; ++l) {
+    BruteLane& a = ln[l];
+    if (!pass[l]) continue;
+    float t[U];
+    bool inner[U];
+    for (int u = 0; u < U; ++u)
+      inner[u] = brute_test<TYP, MT>(p + u * ROW_EXT_W, a.r, t[u]);
+    a.tests += U;
+    for (int u = 0; u < U; ++u) {
+      if (inner[u] && t[u] < a.t) {
+        a.t = t[u];
+        a.row = j + u;
       }
-      vote[l] = a.probe;
-    }
-    wc.node += 1;
-    if (!W::any(vote)) {
-      ptr = nxt;
-    } else if (cnt == 0) {
-      ptr += 1;
-    } else {
-      int st = ldi(s.leaf_start + ptr);
-      warp_leaf<W, MT>(s.rows + (long long)st * ROW_W, st, cnt, ln, buf);
-      wc.row += cnt;
-      ptr = nxt;
     }
   }
 }
 
-// _closest_hit_kernel for one ray: every row in type-sorted order, one
-// loop per type (counts n[0..3] of spheres, planes, walls, triangles),
-// each hit gated by its row's leaf box with GATE. The first row of the
-// least t wins; t INF and row 0 on a miss.
-template <bool MT, bool GATE>
-__device__ void brute_ray(const float* rows, const int* n, const Ray& r,
-                          float& t_best, int& best) {
-  t_best = INF;
-  best = 0;
-  int i = 0;
-  const float* p = rows;
-  for (int e = n[0]; i < e; ++i, p += ROW_EXT_W) {
-    float t;
-    bool inner = pre_sphere(p, r, t);
-    if (GATE) inner = inner && box_gate(p + R_B0X, r);
-    if (inner && t < t_best) { t_best = t; best = i; }
-  }
-  for (int e = i + n[1]; i < e; ++i, p += ROW_EXT_W) {
-    float t, hx, hy, hz;
-    bool inner = plane_hit(p + 5, r, t, hx, hy, hz);
-    if (GATE) inner = inner && box_gate(p + R_B0X, r);
-    if (inner && t < t_best) { t_best = t; best = i; }
-  }
-  for (int e = i + n[2]; i < e; ++i, p += ROW_EXT_W) {
-    float t, hx, hy, hz;
-    bool inner = plane_hit(p + 5, r, t, hx, hy, hz) &&
-                 wall_inside(p + 9, hx, hy, hz);
-    if (GATE) inner = inner && box_gate(p + R_B0X, r);
-    if (inner && t < t_best) { t_best = t; best = i; }
-  }
-  for (int e = i + n[3]; i < e; ++i, p += ROW_EXT_W) {
-    float t;
-    bool inner;
-    if (MT) {
-      inner = mt_test(p + 9, r, t);
-    } else {
-      float hx, hy, hz;
-      inner = plane_hit(p + 5, r, t, hx, hy, hz) &&
-              bary_inside(p + 9, hx, hy, hz);
+template <class W, int TYP, bool MT>
+__device__ __forceinline__ void brute_run(const float* rows, int st, int cnt,
+                                          BruteLane* ln, const bool* pass) {
+  int j = 0;
+  for (; j + ROW_ILP <= cnt; j += ROW_ILP)
+    brute_rows<W, TYP, MT, ROW_ILP>(rows, st + j, ln, pass);
+  for (; j < cnt; ++j) brute_rows<W, TYP, MT, 1>(rows, st + j, ln, pass);
+}
+
+// U consecutive runs at b: each lane's gates, one vote for the group, then
+// per run a vote and the passing lanes' row tests. Returns the rows the
+// warp stepped through. The U gates are evaluated without branches (a
+// lane that does not walk gates too, and its bits are dropped), so that
+// their arithmetic interleaves, and a lane keeps its U results as bits of
+// one register.
+template <class W, bool MT, bool GATE, int U>
+__device__ __forceinline__ unsigned brute_runs(const Runs& s, const float* b,
+                                               BruteLane* ln) {
+  unsigned pass[W::N];
+  bool vote[W::N];
+  for (int l = 0; l < W::N; ++l) {
+    BruteLane& a = ln[l];
+    unsigned bits = (1u << U) - 1u;
+    if (GATE) {
+      bits = 0u;
+      for (int u = 0; u < U; ++u)
+        bits |= (unsigned)run_gate(b + u * RUN_W, a.r) << u;
+      if (a.walks) a.gates += U;
     }
-    if (GATE) inner = inner && box_gate(p + R_B0X, r);
-    if (inner && t < t_best) { t_best = t; best = i; }
+    pass[l] = a.walks ? bits : 0u;
+    vote[l] = pass[l] != 0u;
   }
+  if (!W::any(vote)) return 0u;
+  unsigned stepped = 0u;
+  for (int u = 0; u < U; ++u) {
+    for (int l = 0; l < W::N; ++l) vote[l] = (pass[l] >> u) & 1u;
+    if (!W::any(vote)) continue;
+    const float* run = b + u * RUN_W;
+    int st = (int)run[6], cnt = (int)run[7];
+    int typ = (st >= s.end[0]) + (st >= s.end[1]) + (st >= s.end[2]);
+    if (typ == SPHERE) brute_run<W, SPHERE, MT>(s.rows, st, cnt, ln, vote);
+    else if (typ == PLANE) brute_run<W, PLANE, MT>(s.rows, st, cnt, ln, vote);
+    else if (typ == WALL) brute_run<W, WALL, MT>(s.rows, st, cnt, ln, vote);
+    else brute_run<W, TRIANGLE, MT>(s.rows, st, cnt, ln, vote);
+    stepped += (unsigned)cnt;
+  }
+  return stepped;
+}
+
+// The closest hit of the W::N lanes ln over every run: each lane's t (INF
+// on a miss) and row (0 on a miss). buf: the block's two chunk buffers
+// (2 * chunk * RUN_W floats, 16-byte aligned).
+template <class W, bool MT, bool GATE>
+__device__ __forceinline__ void brute_walk(const Runs& s, BruteLane* ln,
+                                           float* buf, WarpCounts& wc) {
+  staged_chunks<W>(s.runs, s.n_runs, s.chunk, RUN_W, buf,
+                   [&](const float* cur, int, int nr) {
+    int k = 0;
+    for (; k + RUN_ILP <= nr; k += RUN_ILP)
+      wc.row += brute_runs<W, MT, GATE, RUN_ILP>(s, cur + k * RUN_W, ln);
+    for (; k < nr; ++k)
+      wc.row += brute_runs<W, MT, GATE, 1>(s, cur + k * RUN_W, ln);
+    return true;
+  });
+}
+
+// ---- closest_hit_kernel's warp-synchronous split walk ------------------
+//
+// closest_walk<TRI, false> and occluded<TRI> for the 32 rays of a warp.
+// Each lane first runs the pre-pass over the n_other rows alone (every
+// lane tests the same rows, so no vote is needed): spheres, then planes
+// and walls, PRE_ILP rows at a time, every test first and then the
+// strict-< updates in row order, so the earliest row still wins exact
+// ties. Then the warp walks the triangle tree in lockstep as warp_walk
+// walks the reference tree (lockstep_walk): one pointer ptr, a resume
+// index per lane, votes, each lane probing with its own cull (tmin <= t
+// after the pre-pass; in occlusion mode tmin <= limit). A leaf's triangle
+// rows are staged in shared memory SPLIT_CHUNK rows at a time, double
+// buffered (staged_chunks), and each probing lane tests ROW_ILP rows with
+// tri_split, the branch-free form of tri_test, before its in-order
+// updates. In occlusion mode a lane whose inner hit lies below its limit
+// is done (resume = m; its counts stop where occluded returns), and the
+// warp leaves the tree, or the rest of a leaf, once no lane is left. By
+// warp_walk's argument each lane evaluates the pre rows, nodes and
+// triangles of its per-thread walk in the same order with the same t at
+// each cull test: t, the id and the per-lane counts are closest_walk's
+// (occluded's). A parked ray (ox >= 1e30, or NaN) neither tests nor walks,
+// as closest_walk returns at once for it.
+constexpr int SPLIT_CHUNK = 32;
+constexpr int SPLIT_CHUNK_FLOATS = SPLIT_CHUNK * TRI_W;
+constexpr int PRE_ILP = 4;
+
+// One lane of the split walk. Closest mode: t (INF on a miss) and id (-1);
+// occlusion mode: limit, and occ once an occluder is found.
+struct SplitLane {
+  Ray r;
+  Counts c;
+  float t, id, limit;
+  int resume;
+  bool walks, probe, occ;
+};
+
+__device__ __forceinline__ void split_lane_init(SplitLane& a, const Tables& s,
+                                                bool live, const Ray& r,
+                                                float limit) {
+  a.r = r;
+  a.c.pre = 0u; a.c.node = 0u; a.c.tri = 0u;
+  a.t = INF;
+  a.id = -1.0f;
+  a.limit = limit;
+  a.walks = live && r.ox < 1e30f;
+  a.resume = a.walks ? 0 : s.m;
+  a.probe = false;
+  a.occ = false;
+}
+
+// pre_planewall with & for &&.
+__device__ __forceinline__ bool pre_pw(const float* p, const Ray& r,
+                                       float& t) {
+  float hx, hy, hz;
+  bool v_pl = plane_hit(p + 5, r, t, hx, hy, hz);
+  return v_pl & wall_inside(p + 9, hx, hy, hz) & box_gate(p + G_B0X, r);
+}
+
+// tri_test<TRI> with & for &&.
+template <int TRI, class L>
+__device__ __forceinline__ bool tri_split(const float* p, const Ray& r,
+                                          float& t) {
+  if (TRI == TRI_MT) return mt_test<L>(p + T_E1X, r, t);
+  float hx, hy, hz;
+  bool inner = plane_hit<L>(p + T_NX, r, t, hx, hy, hz);
+  if (TRI == TRI_GRAM) {
+    float evx = L::f(p + T_EVX), evy = L::f(p + T_EVX + 1),
+          evz = L::f(p + T_EVX + 2);
+    float ewx = L::f(p + T_EWX), ewy = L::f(p + T_EWX + 1),
+          ewz = L::f(p + T_EWX + 2);
+    float d_ev = r.dx * evx + r.dy * evy + r.dz * evz;
+    float o_ev = r.ox * evx + r.oy * evy + r.oz * evz - L::f(p + T_CV);
+    float v = o_ev + t * d_ev;
+    float d_ew = r.dx * ewx + r.dy * ewy + r.dz * ewz;
+    float o_ew = r.ox * ewx + r.oy * ewy + r.oz * ewz - L::f(p + T_CW);
+    float w = o_ew + t * d_ew;
+    return inner & (v >= 0.0f) & (w >= 0.0f) & ((v + w) <= 1.0f);
+  }
+  return inner & bary_inside<L>(p + T_E1X, hx, hy, hz);
+}
+
+// U pre rows from row i (all spheres, or all planes and walls). Closest
+// mode: the strict-< updates of best and bi in row order; occlusion mode:
+// true at the first row occluding below the limit, counting the rows
+// occluded would have tested.
+template <bool SPH, int U, bool OCC>
+__device__ __forceinline__ bool pre_group(const float* pre, int i,
+                                          SplitLane& a, float& best,
+                                          int& bi) {
+  float t[U];
+  bool inner[U];
+  for (int u = 0; u < U; ++u) {
+    const float* p = pre + (i + u) * PRE_W;
+    inner[u] = SPH ? pre_sphere(p, a.r, t[u]) : pre_pw(p, a.r, t[u]);
+  }
+  if (OCC) {
+    for (int u = 0; u < U; ++u) {
+      if (inner[u] && t[u] < a.limit) {
+        a.c.pre += u + 1;
+        return true;
+      }
+    }
+    a.c.pre += U;
+    return false;
+  }
+  for (int u = 0; u < U; ++u) {
+    if (inner[u] && t[u] < best) {
+      best = t[u];
+      bi = i + u;
+    }
+  }
+  return false;
+}
+
+template <bool OCC>
+__device__ __forceinline__ void split_pre(const Tables& s, SplitLane& a) {
+  float best = INF;
+  int bi = -1;
+  bool occ = false;
+  int i = 0;
+  for (; !occ && i + PRE_ILP <= s.n_sph; i += PRE_ILP)
+    occ = pre_group<true, PRE_ILP, OCC>(s.pre, i, a, best, bi);
+  for (; !occ && i < s.n_sph; ++i)
+    occ = pre_group<true, 1, OCC>(s.pre, i, a, best, bi);
+  for (; !occ && i + PRE_ILP <= s.n_other; i += PRE_ILP)
+    occ = pre_group<false, PRE_ILP, OCC>(s.pre, i, a, best, bi);
+  for (; !occ && i < s.n_other; ++i)
+    occ = pre_group<false, 1, OCC>(s.pre, i, a, best, bi);
+  if (OCC) {
+    a.occ = occ;
+    if (occ) a.resume = s.m;
+    return;
+  }
+  a.c.pre += s.n_other;
+  if (best < a.t) {
+    a.t = best;
+    a.id = ld(s.pre + bi * PRE_W + G_GID);
+  }
+}
+
+// The probing lanes test the U staged triangle rows at p.
+template <class W, int TRI, bool OCC, int U>
+__device__ __forceinline__ void split_rows(const float* p, SplitLane* ln,
+                                           int m) {
+  for (int l = 0; l < W::N; ++l) {
+    SplitLane& a = ln[l];
+    if (!a.probe) continue;
+    float t[U];
+    bool inner[U];
+    for (int u = 0; u < U; ++u)
+      inner[u] = tri_split<TRI, Plain>(p + u * TRI_W, a.r, t[u]);
+    if (OCC) {
+      int u = 0;
+      while (u < U && !(inner[u] && t[u] < a.limit)) ++u;
+      a.c.tri += u < U ? u + 1 : U;
+      if (u < U) {
+        a.occ = true;
+        a.probe = false;
+        a.resume = m;
+      }
+    } else {
+      a.c.tri += U;
+      for (int u = 0; u < U; ++u) {
+        if (inner[u] && t[u] < a.t) {
+          a.t = t[u];
+          a.id = p[u * TRI_W + T_GID];
+        }
+      }
+    }
+  }
+}
+
+// The probing lanes test the cnt triangle rows at src, staged chunk by
+// chunk into buf (2 * SPLIT_CHUNK_FLOATS floats, 16-byte aligned). Returns
+// the rows the warp stepped through.
+template <class W, int TRI, bool OCC>
+__device__ __forceinline__ unsigned split_leaf(const float* src, int cnt,
+                                               SplitLane* ln, float* buf,
+                                               int m) {
+  unsigned stepped = 0u;
+  staged_chunks<W>(src, cnt, SPLIT_CHUNK, TRI_W, buf,
+                   [&](const float* cur, int j0, int nr) {
+    int j = 0;
+    for (; j + ROW_ILP <= nr; j += ROW_ILP)
+      split_rows<W, TRI, OCC, ROW_ILP>(cur + j * TRI_W, ln, m);
+    for (; j < nr; ++j) split_rows<W, TRI, OCC, 1>(cur + j * TRI_W, ln, m);
+    stepped += (unsigned)nr;
+    if (!OCC || j0 + nr == cnt) return true;
+    bool vote[W::N];   // no lane left: the next chunk is not read
+    for (int l = 0; l < W::N; ++l) vote[l] = ln[l].probe;
+    return W::any(vote);
+  });
+  return stepped;
+}
+
+// The pre-pass and the tree walk of the W::N lanes ln (of one warp). buf:
+// this warp's staging buffer.
+template <class W, int TRI, bool OCC>
+__device__ __forceinline__ void split_walk(const Tables& s, SplitLane* ln,
+                                           float* buf, WarpCounts& wc) {
+  for (int l = 0; l < W::N; ++l)
+    if (ln[l].walks) split_pre<OCC>(s, ln[l]);
+  lockstep_walk<W, 6>(
+      s, ln, wc,
+      [](const SplitLane& a, const float*, float tmin) {
+        return tmin <= (OCC ? a.limit : a.t);
+      },
+      [&](int st, int cnt) {
+        wc.row += split_leaf<W, TRI, OCC>(s.tri + (long long)st * TRI_W, cnt,
+                                          ln, buf, s.m);
+        if (!OCC) return true;
+        bool vote[W::N];   // false once every lane is occluded or done
+        for (int l = 0; l < W::N; ++l) vote[l] = ln[l].resume < s.m;
+        return W::any(vote);
+      });
 }
 
 }  // namespace rt

@@ -7,13 +7,16 @@ that the image matches the BVH renderers; the Whitted loop of
 
 ``brute_hit`` wraps the CUDA kernel ``brute_kernel`` (csrc/raytrace.cu),
 which replaces the TPU kernel ``_closest_hit_kernel`` (pallas_kernel.py:
-95). On a CPU tensor it runs ``brute_plain``: chunks of rays against all
-rows at once, through ``geom.rowwise.intersect_rows``.
+95). The kernel gates first, once per run of rows that share a leaf box
+(``box_runs``), and tests only the rows whose gate passes. On a CPU tensor
+it runs ``brute_plain``: chunks of rays against all rows at once, through
+``geom.rowwise.intersect_rows``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import itertools
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,6 +34,10 @@ F_B0X = rowwise.PACK_WIDTH
 PACK_EXT = F_B0X + 6
 # Ray x shape pairs per pass of the plain version (bounds its temporaries).
 PLAIN_PAIRS = 1 << 22
+# Columns of the run table (csrc/raytrace.cuh RUN_W): the box min xyz and
+# max xyz, the first row and the row count, the last two exact in f32.
+RUN_W = 8
+MAX_ROWS = 1 << 24
 
 
 def sort_scene_by_type(scene) -> Tuple[torch.Tensor, Tuple[int, ...]]:
@@ -55,6 +62,35 @@ def pack_rows_ext(scene, perm: torch.Tensor, leaf_boxes=None) -> torch.Tensor:
         bmin, bmax = (b.to(dev) for b in leaf_boxes)
     rows = torch.cat([rows, bmin, bmax], dim=1)
     return rows[perm.to(dev).long()].contiguous()
+
+
+def box_runs(rows_ext: torch.Tensor, counts,
+             gate_boxes: bool = True) -> torch.Tensor:
+    """(R, RUN_W) f32 run table of ``brute_kernel``: the maximal ranges of
+    consecutive rows that hold one type (``counts`` in type-sorted order)
+    and, with ``gate_boxes``, bitwise-equal leaf-box columns (so a run's
+    gate decides for each of its rows); without, each type's rows are one
+    run. Each run is its box, its first row and its row count. Tensor ops
+    on the rows' device (one host sync, for the count of runs)."""
+    n, dev = rows_ext.shape[0], rows_ext.device
+    if n != sum(counts):
+        raise ValueError(f"{n} rows, counts sum to {sum(counts)}")
+    if n >= MAX_ROWS:
+        raise ValueError(f"{n} rows: the run table holds row indices "
+                         f"below {MAX_ROWS} exactly")
+    if n == 0:
+        return torch.zeros((0, RUN_W), dtype=torch.float32, device=dev)
+    new = torch.zeros(n, dtype=torch.bool, device=dev)
+    if gate_boxes:
+        bits = rows_ext[:, F_B0X:PACK_EXT].contiguous().view(torch.int32)
+        new[1:] = (bits[1:] != bits[:-1]).any(1)
+    firsts = [0] + [s for s in itertools.accumulate(counts[:-1]) if s < n]
+    new[torch.tensor(firsts, dtype=torch.long, device=dev)] = True
+    start = torch.nonzero(new).squeeze(1)
+    count = torch.diff(start, append=start.new_tensor([n]))
+    return torch.cat([rows_ext[start, F_B0X:PACK_EXT],
+                      start[:, None].to(torch.float32),
+                      count[:, None].to(torch.float32)], dim=1).contiguous()
 
 
 def brute_plain(rows_ext: torch.Tensor, counts, o: torch.Tensor,
@@ -88,29 +124,40 @@ def brute_plain(rows_ext: torch.Tensor, counts, o: torch.Tensor,
 
 
 def brute_hit(rows_ext: torch.Tensor, counts, o: torch.Tensor,
-              d: torch.Tensor, use_mt: bool, gate_boxes: bool):
+              d: torch.Tensor, use_mt: bool, gate_boxes: bool,
+              runs: Optional[torch.Tensor] = None,
+              stats: Optional[torch.Tensor] = None):
     """Closest hit of R rays o, d (R, 3) f32 over the type-sorted rows:
-    (t, row int32). On a CUDA tensor this launches ``brute_kernel``; on a
-    CPU tensor it runs ``brute_plain``."""
+    (t, row int32). On a CUDA tensor this launches ``brute_kernel`` over
+    ``runs``, the rows' ``box_runs`` (built here when None); on a CPU
+    tensor it runs ``brute_plain``. ``stats``, an int64 (3,) tensor on the
+    card, receives the lanes' gate tests and row tests and the warps' row
+    steps."""
     dev = o.device
     if dev.type == "cpu":
         return brute_plain(rows_ext, counts, o, d, use_mt, gate_boxes)
     if dev.type != "cuda":
         raise ValueError(f"brute_hit: unsupported device {dev}")
     n = o.shape[0]
-    n_sph, n_pl, n_wall, n_tri = counts
+    n_sph, n_pl, n_wall, _ = counts
     kernels.check_tensor("rows_ext", rows_ext, torch.float32, dev,
                          (sum(counts), PACK_EXT))
+    if runs is None:
+        runs = box_runs(rows_ext, counts, gate_boxes)
+    kernels.check_tensor("runs", runs, torch.float32, dev, (None, RUN_W))
     kernels.check_tensor("o", o, torch.float32, dev, (None, 3))
     kernels.check_tensor("d", d, torch.float32, dev, (n, 3))
+    if stats is not None:
+        kernels.check_tensor("stats", stats, torch.int64, dev, (3,))
     t = torch.empty(n, dtype=torch.float32, device=dev)
     row = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return t, row
     status = kernels.library().rt_brute(
-        rows_ext.data_ptr(), n_sph, n_pl, n_wall, n_tri, o.data_ptr(),
-        d.data_ptr(), n, t.data_ptr(), row.data_ptr(), int(use_mt),
-        int(gate_boxes), kernels.stream_ptr(dev))
+        rows_ext.data_ptr(), runs.data_ptr(), runs.shape[0], n_sph, n_pl,
+        n_wall, o.data_ptr(), d.data_ptr(), n, t.data_ptr(), row.data_ptr(),
+        int(use_mt), int(gate_boxes),
+        None if stats is None else stats.data_ptr(), kernels.stream_ptr(dev))
     kernels.check_status("brute_kernel", status)
     brute_hit.launches += 1
     return t, row
@@ -125,10 +172,11 @@ def make_closest_hit(rows_ext: torch.Tensor, perm: torch.Tensor, counts,
     ``pallas_kernel.make_closest_hit``: sid = perm[row], so a miss gives
     perm[0]."""
     perm = perm.to(device=rows_ext.device, dtype=torch.int64)
+    runs = box_runs(rows_ext, counts, gate_boxes)
 
     def closest_hit(o, d):
         t, row = brute_hit(rows_ext, counts, o.contiguous(), d.contiguous(),
-                           cfg.use_mt, gate_boxes)
+                           cfg.use_mt, gate_boxes, runs)
         return t, perm[row.long()].to(torch.int32), t < INF
 
     return closest_hit

@@ -45,7 +45,8 @@ _SIGNATURES = {
     "rt_closest_attrs": _TABLES + [_P, _P, _I, _P, _P, _P, _I, _P, _P],
     "rt_resolve": [_P, _I, _P, _P, _I, _P, _P],
     "rt_packet": [_P] * 5 + [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
-    "rt_brute": [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
+    "rt_brute": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P,
+                 _P],
 }
 
 

@@ -361,8 +361,9 @@ def closest_hit(split: SplitScene, o: torch.Tensor, d: torch.Tensor,
 
     On a CUDA tensor this launches ``closest_hit_kernel`` on the current
     stream; on a CPU tensor it runs ``closest_hit_plain``. ``stats``, an
-    int64 (3,) tensor on the card, receives the counts of pre-pass, node
-    and triangle tests."""
+    int64 (5,) tensor on the card, receives the counts of pre-pass, node
+    and triangle tests and the warps' node steps and row steps of the
+    lockstep walk."""
     dev = o.device
     if dev.type == "cpu":
         return closest_hit_plain(split, o, d, tri_mode, max_t)
@@ -374,7 +375,7 @@ def closest_hit(split: SplitScene, o: torch.Tensor, d: torch.Tensor,
     if max_t is not None:
         kernels.check_tensor("max_t", max_t, torch.float32, dev, (n,))
     if stats is not None:
-        kernels.check_tensor("stats", stats, torch.int64, dev, (3,))
+        kernels.check_tensor("stats", stats, torch.int64, dev, (5,))
     t = torch.empty(n, dtype=torch.float32, device=dev)
     gid = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:

@@ -1,16 +1,27 @@
-"""packet_kernel's warp-synchronous walk, compiled for the host.
+"""The lockstep walks of packet_kernel, brute_kernel and
+closest_hit_kernel, compiled for the host.
 
 ``tools/host_check.py`` compiles the CUDA device code of
 ``raytracer_tpu_torch/csrc/raytrace.cuh`` with g++ under a host lane
 policy: one thread runs the 32 lanes of a warp, a vote is a loop over
-them, and the leaf rows are staged with cp.async's group semantics (a copy
-lands only when a wait covers it). These tests hold that walk against
-``packet.packet_plain`` bit for bit (t and the row) on scenes 1, 2 and a
-scene with every shape type, in all four ``<MT, CULL>`` variants, on
-seeded rays (a tenth parked, some NaN, some of zero direction, a count that
-is not a multiple of 32); its per-lane counts against those of the
-per-thread walk (``packet_walk``); and its warp node and row steps against
-a count made here in numpy. Skipped only where g++ is absent.
+them, and staged rows and run tables land with cp.async's group semantics
+(a copy lands only when a wait covers it). These tests hold the walks
+against their plain versions bit for bit on scenes 1, 2 (3) and a scene
+with every shape type, on seeded rays (a tenth parked, some NaN, some of
+zero direction, a count that is not a multiple of 32):
+- packet_kernel's ``warp_walk`` against ``packet.packet_plain`` (t and the
+  row) in all four ``<MT, CULL>`` variants; its per-lane counts against
+  those of the per-thread walk (``packet_walk``); its warp node and row
+  steps against a count made here in numpy;
+- brute_kernel's ``brute_walk`` against ``brute.brute_plain`` (t and the
+  row), gate and Moller-Trumbore on and off, with the run table staged
+  whole and in chunks; its row tests against the rows whose leaf box each
+  ray hits, counted here;
+- closest_hit_kernel's ``split_walk`` against ``closest_hit_plain`` (t
+  and the gid, and occlusion) for the raw, Gram and MT triangle tests, and
+  its per-lane counts against those of the per-thread walks
+  (``closest_walk``, ``occluded``).
+Skipped only where g++ is absent.
 """
 
 from __future__ import annotations
@@ -25,13 +36,18 @@ import pytest
 import torch
 
 from raytracer_tpu_torch.accel import build_bvh, linearize
+from raytracer_tpu_torch.accel.linearize import shape_leaf_boxes
 from raytracer_tpu_torch.core.camera import from_euler
-from raytracer_tpu_torch.render import packet
+from raytracer_tpu_torch.geom import rowwise
+from raytracer_tpu_torch.render import brute, packet, split_scene
+from raytracer_tpu_torch.render.split import closest_hit_plain
 from raytracer_tpu_torch.scenes import generate_scene
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 N_RAYS = 3001   # 93 full warps and a partial one of 25 lanes
 SCENES = ("scene1", "scene2", "typed")
+ALL_SCENES = ("scene1", "scene2", "scene3", "typed")
+WHOLE = 3000   # runs per chunk: every table staged at once
 VARIANTS = [(mt, cull) for mt in (False, True) for cull in (False, True)]
 
 
@@ -139,3 +155,61 @@ def test_warp_steps_match_a_numpy_count(scene, hc, lib):
     for use_mt in (False, True):
         _, sw = hc.host_warp(lib, tree, o, d, use_mt, False)
         assert tuple(sw[3:]) == want
+
+
+def _rows_hitting_boxes(runs, o, d):
+    """Summed over the rays of nonzero direction (the others hit nothing),
+    the rows of each run whose box the ray hits (the gate's slab test)."""
+    keep = (d != 0).any(1)
+    o, d = o[keep], d[keep]
+    tmin, tmax = rowwise.slab(runs[None, :, :6], o[:, None], 1.0 / d[:, None])
+    hit = (tmax >= tmin) & (tmax > 0)
+    return int((hit.sum(0) * runs[:, 7].long()).sum())
+
+
+@pytest.mark.parametrize("scene", ALL_SCENES)
+def test_brute_walk_matches_brute_plain(scene, hc, lib):
+    flat, lin, o, d = _scene(scene)
+    perm, counts = brute.sort_scene_by_type(flat)
+    boxes = shape_leaf_boxes(lin, flat.num_shapes)
+    for gate in (False, True):
+        rows = brute.pack_rows_ext(flat, perm, boxes if gate else None)
+        runs = brute.box_runs(rows, counts, gate)
+        assert int(runs[:, 7].sum()) == rows.shape[0]
+        for use_mt in (False, True):
+            tp, rp = brute.brute_plain(rows, counts, o, d, use_mt, gate)
+            for chunk in (hc.RUN_CHUNK, WHOLE):
+                (tk, rk), st = hc.host_brute(lib, rows, runs, counts, o, d,
+                                             use_mt, gate, chunk)
+                assert torch.equal(tk, tp) and torch.equal(rk, rp)
+                gates, tests, steps = st
+                walks = int((d != 0).any(1).sum())
+                assert walks < o.shape[0]   # zero-direction rays walk not
+                assert gates == (walks * runs.shape[0] if gate else 0)
+                if gate:
+                    assert tests == _rows_hitting_boxes(runs, o, d)
+                else:
+                    assert tests == walks * rows.shape[0]
+                assert tests <= 32 * steps
+    assert bool((tp < 1e30).any()) and bool((tp >= 1e30).any())
+
+
+@pytest.mark.parametrize("scene", ALL_SCENES)
+def test_split_walk_matches_closest_hit_plain(scene, hc, lib):
+    flat, lin, o, d = _scene(scene)
+    split = split_scene.prepare(flat, lin)
+    for tri_mode in (0, 1, 2):
+        (tw, gw), cw, _ = hc.host_closest(lib, split, o, d, tri_mode,
+                                          warp=True)
+        tp, gp = closest_hit_plain(split, o, d, tri_mode)
+        assert torch.equal(tw, tp) and torch.equal(gw, gp)
+        _, ck = hc.host_closest(lib, split, o, d, tri_mode)
+        assert torch.equal(cw, ck)   # each lane's pre, node, tri tests
+        limit = hc.occlusion_limits(tp)
+        ow, cow, _ = hc.host_closest(lib, split, o, d, tri_mode, limit,
+                                     warp=True)
+        op = closest_hit_plain(split, o, d, tri_mode, max_t=limit)[0] == 0
+        assert torch.equal(ow, op)
+        _, cok = hc.host_closest(lib, split, o, d, tri_mode, limit)
+        assert torch.equal(cow, cok)
+    assert bool((tp < 1e30).any()) and bool(op.any())

@@ -1,36 +1,36 @@
 #!/usr/bin/env python3
 """Hold the CUDA device code of the packet-BVH (per thread and per warp),
 brute-force and split closest-hit walks against their plain PyTorch
-versions on the CPU, and count the packet walks' tests and steps.
+versions on the CPU, and count their tests and steps.
 
 The per-ray device code in raytracer_tpu_torch/csrc/raytrace.cuh is plain
 C++ apart from four CUDA names, so g++ compiles it as host code once those
 are defined. This script builds a small shared library of host loops over
-``closest_walk`` (the walk of closest_hit_kernel, fused_kernel and
-wholeframe_kernel; with the material pointer, of closest_attrs_kernel),
-``warp_walk`` (the body of packet_kernel: 32 lanes a call, votes as
-loops, the leaf rows staged as cp.async would stage them),
-``packet_walk`` (per thread: the body of occlusion_kernel, and the walk
-whose per-lane counts the warp walk must equal) and ``brute_ray`` (the
-body of brute_kernel), runs it on seeded rays
-of scenes 1-3 and of a scene with every shape type (random and camera
-rays, a tenth parked, some NaN, some of zero direction) for every
-template variant, and compares t, ids, rows
-and occlusion with ``closest_hit_plain``, ``closest_hit_attrs_plain``,
-``packet_plain``,
-``occlusion_plain`` and ``brute_plain`` bit for bit. It then prints the
-packet walk's node probes and row tests per primary ray of a 200x150
-frame (and per light ray of its hits), t-culling on and off, and the warp
-walk's steps and SIMD efficiency on those rays in image order.
-
-    python3 tools/host_check.py
-
-Needs g++ and the CPU build of PyTorch; no card, no nvcc. Exits non-zero
-on any difference.
+``closest_walk`` and ``occluded`` (per thread: the walk of fused_kernel and
+wholeframe_kernel, with the material pointer of closest_attrs_kernel, and
+the walks whose per-lane counts the split walk must equal),
+``split_walk`` (the body of closest_hit_kernel), ``warp_walk`` (the body
+of packet_kernel), ``packet_walk`` (per thread: the body of
+occlusion_kernel, and the walk whose per-lane counts the warp walk must
+equal) and ``brute_walk`` (the body of brute_kernel). The lockstep walks
+run 32 lanes a call under a host lane policy: votes are loops, and staged
+rows and run tables land as cp.async lands them (brute_walk's block-wide
+staging is one warp's here; its run table is staged in the kernel's
+chunks, and whole). It runs them on seeded rays of scenes 1-3 and of a scene with
+every shape type (random and camera rays, a tenth parked, some NaN, some of
+zero direction, a partial warp) for every template variant, and compares
+t, ids, rows and occlusion with ``closest_hit_plain``,
+``closest_hit_attrs_plain``, ``packet_plain``, ``occlusion_plain`` and
+``brute_plain`` bit for bit. It then prints, per primary ray of a 200x150
+frame, the packet walk's node probes and row tests (and per light ray of
+its hits), t-culling on and off, the lockstep walks' steps and SIMD
+efficiency on those rays in image order, and the brute walk's gates and
+row tests.
 """
 
 import ctypes
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -49,8 +49,14 @@ from raytracer_tpu_torch.render.split import (  # noqa: E402
     closest_hit_attrs_plain, closest_hit_plain)
 from raytracer_tpu_torch.scenes import generate_scene  # noqa: E402
 
+# brute_kernel's chunk of staged runs, as csrc/raytrace.cu sets it.
+RUN_CHUNK = int(re.search(
+    r"RUN_CHUNK = (\d+)", (ROOT / "raytracer_tpu_torch" / "csrc" /
+                           "raytrace.cu").read_text()).group(1))
+
 SHIM = r"""
 #include <math.h>
+#include <stdint.h>
 #include <string.h>
 #include <vector>
 #define __device__
@@ -141,27 +147,91 @@ static void packet_all(const rt::Tree& s, const float* o, const float* d,
   }
 }
 
+// brute_kernel's walk: one 32-lane warp is the block.
 template <bool MT, bool GATE>
-static void brute_all(const float* rows, const int* cnt, const float* o,
-                      const float* d, int n, float* t_out, int* row_out) {
-  for (int i = 0; i < n; ++i) {
-    rt::Ray r = rt::make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
-                             d[3 * i + 1], d[3 * i + 2]);
-    rt::brute_ray<MT, GATE>(rows, cnt, r, t_out[i], row_out[i]);
+static void brute_walk_all(const rt::Runs& s, const float* o, const float* d,
+                           int n, float* t_out, int* row_out,
+                           unsigned long long* stats) {
+  std::vector<float> store(2 * (size_t)s.chunk * rt::RUN_W + 4);
+  float* buf = store.data();
+  while ((uintptr_t)buf % 16) ++buf;
+  for (int w = 0; w < n; w += 32) {
+    rt::BruteLane ln[32];
+    for (int l = 0; l < 32; ++l) {
+      int i = w + l;
+      rt::Ray r = rt::make_ray(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
+      if (i < n)
+        r = rt::make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                         d[3 * i + 1], d[3 * i + 2]);
+      rt::brute_lane_init(ln[l], i < n, r);
+    }
+    rt::WarpCounts wc = {0u, 0u};
+    rt::brute_walk<HostWarp, MT, GATE>(s, ln, buf, wc);
+    for (int l = 0; l < 32; ++l) {
+      if (w + l < n) {
+        t_out[w + l] = ln[l].t;
+        row_out[w + l] = ln[l].row;
+      }
+      stats[0] += ln[l].gates; stats[1] += ln[l].tests;
+    }
+    stats[2] += wc.row;
   }
 }
 
+// closest_walk (limit null) or occluded for each ray, with its counts.
 template <int TRI>
 static void closest_all(const rt::Tables& s, const float* o, const float* d,
-                        int n, float* t_out, float* id_out) {
+                        const float* limit, int n, float* t_out,
+                        float* id_out, unsigned char* occ, unsigned* counts) {
   for (int i = 0; i < n; ++i) {
     rt::Ray r = rt::make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
                              d[3 * i + 1], d[3 * i + 2]);
     rt::Counts c = {0u, 0u, 0u};
-    rt::Hit h = rt::closest_walk<TRI, false>(s, rt::G_GID, rt::T_GID, r,
-                                             rt::INF, c);
-    t_out[i] = h.t;
-    id_out[i] = h.id;
+    if (limit) {
+      occ[i] = rt::occluded<TRI>(s, r, limit[i], c);
+    } else {
+      rt::Hit h = rt::closest_walk<TRI, false>(s, rt::G_GID, rt::T_GID, r,
+                                               rt::INF, c);
+      t_out[i] = h.t;
+      id_out[i] = h.id;
+    }
+    counts[3 * i] = c.pre; counts[3 * i + 1] = c.node;
+    counts[3 * i + 2] = c.tri;
+  }
+}
+
+// closest_hit_kernel's split walk, 32 lanes a call (limit null: closest).
+template <int TRI, bool OCC>
+static void split_all(const rt::Tables& s, const float* o, const float* d,
+                      const float* limit, int n, float* t_out, float* id_out,
+                      unsigned char* occ, unsigned* counts,
+                      unsigned long long* steps) {
+  alignas(16) static float buf[2 * rt::SPLIT_CHUNK_FLOATS];
+  for (int w = 0; w < n; w += 32) {
+    rt::SplitLane ln[32];
+    for (int l = 0; l < 32; ++l) {
+      int i = w + l;
+      rt::Ray r = rt::make_ray(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
+      if (i < n)
+        r = rt::make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                         d[3 * i + 1], d[3 * i + 2]);
+      rt::split_lane_init(ln[l], s, i < n, r,
+                          OCC && i < n ? limit[i] : rt::INF);
+    }
+    rt::WarpCounts wc = {0u, 0u};
+    rt::split_walk<HostWarp, TRI, OCC>(s, ln, buf, wc);
+    for (int l = 0; l < 32 && w + l < n; ++l) {
+      int i = w + l;
+      if (OCC) {
+        occ[i] = ln[l].occ;
+      } else {
+        t_out[i] = ln[l].t;
+        id_out[i] = ln[l].id;
+      }
+      counts[3 * i] = ln[l].c.pre; counts[3 * i + 1] = ln[l].c.node;
+      counts[3 * i + 2] = ln[l].c.tri;
+    }
+    steps[0] += wc.node; steps[1] += wc.row;
   }
 }
 
@@ -196,12 +266,29 @@ void h_closest_attrs(const int* ls, const int* lc, const int* sk,
 }
 void h_closest(const int* ls, const int* lc, const int* sk, const float* nodes,
                const float* pre, const float* tri, int m, int n_other,
-               int n_sph, const float* o, const float* d, int n, float* t_out,
-               float* id_out, int tri_mode) {
+               int n_sph, const float* o, const float* d, const float* limit,
+               int n, float* t_out, float* id_out, unsigned char* occ,
+               unsigned* counts, int tri_mode) {
   rt::Tables s = {ls, lc, sk, nodes, pre, tri, m, n_other, n_sph};
-  if (tri_mode == rt::TRI_RAW) closest_all<rt::TRI_RAW>(s, o, d, n, t_out, id_out);
-  if (tri_mode == rt::TRI_GRAM) closest_all<rt::TRI_GRAM>(s, o, d, n, t_out, id_out);
-  if (tri_mode == rt::TRI_MT) closest_all<rt::TRI_MT>(s, o, d, n, t_out, id_out);
+  if (tri_mode == rt::TRI_RAW) closest_all<rt::TRI_RAW>(s, o, d, limit, n, t_out, id_out, occ, counts);
+  if (tri_mode == rt::TRI_GRAM) closest_all<rt::TRI_GRAM>(s, o, d, limit, n, t_out, id_out, occ, counts);
+  if (tri_mode == rt::TRI_MT) closest_all<rt::TRI_MT>(s, o, d, limit, n, t_out, id_out, occ, counts);
+}
+void h_split(const int* ls, const int* lc, const int* sk, const float* nodes,
+             const float* pre, const float* tri, int m, int n_other,
+             int n_sph, const float* o, const float* d, const float* limit,
+             int n, float* t_out, float* id_out, unsigned char* occ,
+             unsigned* counts, unsigned long long* steps, int tri_mode) {
+  rt::Tables s = {ls, lc, sk, nodes, pre, tri, m, n_other, n_sph};
+#define H_SPLIT(TRI)                                                        \
+  if (limit) split_all<TRI, true>(s, o, d, limit, n, t_out, id_out, occ,    \
+                                  counts, steps);                           \
+  else split_all<TRI, false>(s, o, d, limit, n, t_out, id_out, occ, counts, \
+                             steps)
+  if (tri_mode == rt::TRI_RAW) { H_SPLIT(rt::TRI_RAW); }
+  if (tri_mode == rt::TRI_GRAM) { H_SPLIT(rt::TRI_GRAM); }
+  if (tri_mode == rt::TRI_MT) { H_SPLIT(rt::TRI_MT); }
+#undef H_SPLIT
 }
 void h_packet(const int* ls, const int* lc, const int* sk, const float* nodes,
               const float* rows, int m, const float* o, const float* d,
@@ -223,12 +310,16 @@ void h_warp(const int* ls, const int* lc, const int* sk, const float* nodes,
   if (!mt && cull) warp_all<false, true>(s, o, d, n, t_out, row_out, st);
   if (!mt && !cull) warp_all<false, false>(s, o, d, n, t_out, row_out, st);
 }
-void h_brute(const float* rows, const int* cnt, const float* o, const float* d,
-             int n, float* t_out, int* row_out, int mt, int gate) {
-  if (mt && gate) brute_all<true, true>(rows, cnt, o, d, n, t_out, row_out);
-  if (mt && !gate) brute_all<true, false>(rows, cnt, o, d, n, t_out, row_out);
-  if (!mt && gate) brute_all<false, true>(rows, cnt, o, d, n, t_out, row_out);
-  if (!mt && !gate) brute_all<false, false>(rows, cnt, o, d, n, t_out, row_out);
+void h_brute(const float* rows, const float* runs, int n_runs, int chunk,
+             const int* cnt, const float* o, const float* d, int n,
+             float* t_out, int* row_out, int mt, int gate,
+             unsigned long long* stats) {
+  rt::Runs s = {rows, runs, n_runs, chunk,
+                {cnt[0], cnt[0] + cnt[1], cnt[0] + cnt[1] + cnt[2]}};
+  if (mt && gate) brute_walk_all<true, true>(s, o, d, n, t_out, row_out, stats);
+  if (mt && !gate) brute_walk_all<true, false>(s, o, d, n, t_out, row_out, stats);
+  if (!mt && gate) brute_walk_all<false, true>(s, o, d, n, t_out, row_out, stats);
+  if (!mt && !gate) brute_walk_all<false, false>(s, o, d, n, t_out, row_out, stats);
 }
 }
 """
@@ -277,6 +368,53 @@ def host_warp(lib, tree, o, d, use_mt, t_cull):
     return (t, row), stats.tolist()
 
 
+def host_closest(lib, split, o, d, tri_mode, limit=None, warp=False):
+    """The per-thread split walk (closest_walk, or occluded where ``limit``
+    is given) or, with ``warp``, closest_hit_kernel's split walk (32 lanes a
+    call): (t, id) or the occlusion mask, each ray's (pre-pass, node,
+    triangle) counts (n, 3), and with ``warp`` the warps' node and row
+    steps."""
+    n = o.shape[0]
+    t, ids = torch.empty(n), torch.empty(n)
+    occ = torch.empty(n, dtype=torch.bool)
+    counts = torch.zeros(n, 3, dtype=torch.int32)
+    steps = torch.zeros(2, dtype=torch.int64)
+    args = [*(ptr(x) for x in split.device_args()), split.m, split.n_other,
+            split.n_sph, ptr(o), ptr(d), ptr(limit), n, ptr(t), ptr(ids),
+            ptr(occ), ptr(counts)]
+    if warp:
+        lib.h_split(*args, ptr(steps), tri_mode)
+    else:
+        lib.h_closest(*args, tri_mode)
+    out = occ if limit is not None else (t, ids.to(torch.int32))
+    return (out, counts, steps.tolist()) if warp else (out, counts)
+
+
+def host_brute(lib, rows, runs, counts, o, d, use_mt, gate, chunk):
+    """(t, row) of brute_kernel's walk over the run table ``runs``, staged
+    ``chunk`` runs at a time, and its counts: the lanes' gate tests and row
+    tests and the warps' row steps."""
+    n = o.shape[0]
+    t = torch.empty(n)
+    row = torch.empty(n, dtype=torch.int32)
+    stats = torch.zeros(3, dtype=torch.int64)
+    cnt = torch.tensor(counts, dtype=torch.int32)
+    lib.h_brute(ptr(rows), ptr(runs), runs.shape[0], chunk, ptr(cnt), ptr(o),
+                ptr(d), n, ptr(t), ptr(row), int(use_mt), int(gate),
+                ptr(stats))
+    return (t, row), stats.tolist()
+
+
+def occlusion_limits(t):
+    """Per-ray limits for the occlusion queries: where the ray hits, before
+    its closest hit on even rays and beyond it on odd ones; 50 elsewhere; 8
+    infinite and 8 NaN."""
+    odd = torch.arange(t.shape[0]) % 2 == 1
+    limit = torch.where(t < 1e30, t * torch.where(odd, 1.3, 0.7), 50.0)
+    limit[:8], limit[8:16] = float("inf"), float("nan")
+    return limit.contiguous()
+
+
 def simd_efficiency(stats):
     """Lane row tests over 32 x the warps' row steps (counts of
     ``host_warp`` or packet_kernel)."""
@@ -297,6 +435,51 @@ def seeded_rays(camera, n, gen):
     return o.contiguous(), d.contiguous()
 
 
+def check_split(lib, split, o, d, label):
+    """closest_hit_kernel's split walk against closest_hit_plain and its
+    per-lane counts against the per-thread walks', closest and occlusion
+    modes, raw, Gram and MT. Returns the count of differences."""
+    bad = 0
+    for tri_mode in (0, 1, 2):
+        (tw, gw), cw, _ = host_closest(lib, split, o, d, tri_mode, warp=True)
+        (tk, gk), ck = host_closest(lib, split, o, d, tri_mode)
+        tp, gp = closest_hit_plain(split, o, d, tri_mode)
+        limit = occlusion_limits(tp)
+        ow, cow, _ = host_closest(lib, split, o, d, tri_mode, limit, True)
+        ok, cok = host_closest(lib, split, o, d, tri_mode, limit)
+        op = closest_hit_plain(split, o, d, tri_mode, max_t=limit)[0] == 0
+        diff = [int((tw != tp).sum()), int((gw != gp).sum()),
+                int((tk != tp).sum()) + int((gk != gp).sum()),
+                int((cw != ck).any(1).sum()), int((ow != op).sum()),
+                int((ok != op).sum()), int((cow != cok).any(1).sum())]
+        bad += sum(diff)
+        print(f"{label} split walk tri mode {tri_mode}: t, gid, per-thread "
+              f"t/gid, lane counts, occlusion, per-thread occlusion, "
+              f"occlusion lane counts differ on {diff} of {o.shape[0]} rays")
+    return bad
+
+
+def check_brute(lib, rows, counts, o, d, gate, label):
+    """brute_kernel's walk against brute_plain, both triangle tests, with
+    the run table staged in the kernel's chunks and in chunks of 3000 runs
+    (whole). Returns the count of differences."""
+    bad = 0
+    for use_mt in (False, True):
+        tp, rp = brute.brute_plain(rows, counts, o, d, use_mt, gate)
+        runs = brute.box_runs(rows, counts, gate)
+        for chunk in (RUN_CHUNK, 3000):
+            (tk, rk), st = host_brute(lib, rows, runs, counts, o, d, use_mt,
+                                      gate, chunk)
+            diff = [int((tk != tp).sum()), int((rk != rp).sum())]
+            bad += sum(diff)
+            print(f"{label} brute walk mt {int(use_mt)} gate {int(gate)} "
+                  f"chunk {chunk} ({runs.shape[0]} runs): t, row differ on "
+                  f"{diff}; gates, row tests per ray "
+                  f"{[round(x / o.shape[0], 1) for x in st[:2]]}, SIMD "
+                  f"efficiency {st[1] / max(32 * st[2], 1):.3f}")
+    return bad
+
+
 def main() -> int:
     gen = torch.Generator().manual_seed(7)
     bad = 0
@@ -308,17 +491,9 @@ def main() -> int:
             o, d = seeded_rays(sc.camera, 2048, gen)
             perm, counts = brute.sort_scene_by_type(sc.flat)
             split = split_scene.prepare(sc.flat, lin)
-            for tri_mode in (0, 1, 2):   # raw, Gram, MT: closest_walk
+            bad += check_split(lib, split, o, d, f"scene {which}")
+            for tri_mode in (0, 1, 2):   # closest_walk with attributes
                 tk, gk = torch.empty(o.shape[0]), torch.empty(o.shape[0])
-                lib.h_closest(*(ptr(x) for x in split.device_args()),
-                              split.m, split.n_other, split.n_sph, ptr(o),
-                              ptr(d), o.shape[0], ptr(tk), ptr(gk), tri_mode)
-                tp, gp = closest_hit_plain(split, o, d, tri_mode)
-                diff = [int((tk != tp).sum()),
-                        int((gk.to(torch.int32) != gp).sum())]
-                bad += sum(diff)
-                print(f"scene {which} closest_walk tri mode {tri_mode}: t, "
-                      f"gid differ on {diff}")
                 ak = torch.empty(11, o.shape[0])
                 lib.h_closest_attrs(*(ptr(x) for x in split.device_args()),
                                     split.m, split.n_other, split.n_sph,
@@ -345,8 +520,7 @@ def main() -> int:
                           f"{int(t_cull)}: t, row, lane counts differ on "
                           f"{diff}; SIMD efficiency "
                           f"{simd_efficiency(sw):.3f}")
-                    limit = torch.where(tp < 1e30, tp * 0.7, 50.0)
-                    limit[:8], limit[8:16] = float("inf"), float("nan")
+                    limit = occlusion_limits(tp)
                     ok, _ = host_packet(lib, tree, o, d, use_mt, t_cull,
                                         limit)
                     op = packet.occlusion_plain(tree, o, d, limit, use_mt,
@@ -357,23 +531,12 @@ def main() -> int:
                     print(f"scene {which} packet mt {int(use_mt)} t_cull "
                           f"{int(t_cull)}: t, row, occlusion differ on "
                           f"{diff} of {o.shape[0]} rays")
-                for gate in (False, True):
-                    rows = brute.pack_rows_ext(
-                        sc.flat, perm,
-                        shape_leaf_boxes(lin, sc.num_shapes) if gate
-                        else None)
-                    tk = torch.empty(o.shape[0])
-                    rk = torch.empty(o.shape[0], dtype=torch.int32)
-                    cnt = torch.tensor(counts, dtype=torch.int32)
-                    lib.h_brute(ptr(rows), ptr(cnt), ptr(o), ptr(d),
-                                o.shape[0], ptr(tk), ptr(rk), int(use_mt),
-                                int(gate))
-                    tp, rp = brute.brute_plain(rows, counts, o, d, use_mt,
-                                               gate)
-                    diff = [int((tk != tp).sum()), int((rk != rp).sum())]
-                    bad += sum(diff)
-                    print(f"scene {which} brute mt {int(use_mt)} gate "
-                          f"{int(gate)}: t, row differ on {diff}")
+            for gate in (False, True):
+                rows = brute.pack_rows_ext(
+                    sc.flat, perm,
+                    shape_leaf_boxes(lin, sc.num_shapes) if gate else None)
+                bad += check_brute(lib, rows, counts, o, d, gate,
+                                   f"scene {which}")
             # tests per ray of the 200x150 primary rays and their light rays
             po, pd = (x.reshape(-1, 3).contiguous()
                       for x in camera_rays(sc.camera, 200, 150))
@@ -400,23 +563,41 @@ def main() -> int:
                     line += (f"; light rays of the hits {per} "
                              f"({float(occ.float().mean()):.3f} occluded)")
                 print(line)
-        # brute_ray's plane loop (no reference scene has a plane)
+            # the split walk's and the brute walk's work on those rays
+            (t, _), cw, sw = host_closest(lib, split, po, pd, 1, warp=True)
+            lanes = int(cw[:, 2].sum())
+            print(f"scene {which} 200x150 split walk (Gram): pre-pass, node, "
+                  f"triangle tests per ray "
+                  f"{[round(float(x), 1) for x in cw.float().mean(0)]}; "
+                  f"node and row steps a warp "
+                  f"{[round(32 * x / po.shape[0], 1) for x in sw]}, SIMD "
+                  f"efficiency {lanes / max(32 * sw[1], 1):.3f}")
+            rows = brute.pack_rows_ext(sc.flat, perm,
+                                       shape_leaf_boxes(lin, sc.num_shapes))
+            runs = brute.box_runs(rows, counts)
+            _, st = host_brute(lib, rows, runs, counts, po, pd, False, True,
+                               RUN_CHUNK)
+            print(f"scene {which} 200x150 brute walk (gate on, "
+                  f"{runs.shape[0]} runs of {rows.shape[0]} rows): gates, "
+                  f"row tests per ray "
+                  f"{[round(x / po.shape[0], 1) for x in st[:2]]}; rows a "
+                  f"warp steps through {32 * st[2] / po.shape[0]:.1f} "
+                  f"({32 * st[2] / po.shape[0] / rows.shape[0]:.4f} of the "
+                  f"rows), SIMD efficiency {st[1] / max(32 * st[2], 1):.3f}")
+        # every shape type, planes included (no reference scene has one)
         typed = typed_scene("cpu")
         o, d = seeded_rays(from_euler(fov_deg=60, aspect=4 / 3), 2048, gen)
         perm, counts = brute.sort_scene_by_type(typed)
-        rows = brute.pack_rows_ext(typed, perm)
-        cnt = torch.tensor(counts, dtype=torch.int32)
-        for use_mt in (False, True):
-            for gate in (False, True):
-                tk = torch.empty(o.shape[0])
-                rk = torch.empty(o.shape[0], dtype=torch.int32)
-                lib.h_brute(ptr(rows), ptr(cnt), ptr(o), ptr(d), o.shape[0],
-                            ptr(tk), ptr(rk), int(use_mt), int(gate))
-                tp, rp = brute.brute_plain(rows, counts, o, d, use_mt, gate)
-                diff = [int((tk != tp).sum()), int((rk != rp).sum())]
-                bad += sum(diff)
-                print(f"typed scene {counts} brute mt {int(use_mt)} gate "
-                      f"{int(gate)}: t, row differ on {diff}")
+        typed_lin = linearize(build_bvh(typed, 3))
+        for gate in (False, True):
+            rows = brute.pack_rows_ext(
+                typed, perm,
+                shape_leaf_boxes(typed_lin, typed.num_shapes) if gate
+                else None)
+            bad += check_brute(lib, rows, counts, o, d, gate,
+                               f"typed scene {counts}")
+        bad += check_split(lib, split_scene.prepare(typed, typed_lin), o, d,
+                           "typed scene")
     print("host check:", "OK" if bad == 0 else f"{bad} differences")
     return 0 if bad == 0 else 1
 

@@ -1,5 +1,6 @@
-"""A/B timing of resolve_kernel, packet_kernel and occlusion_kernel across
-copies of the port.
+"""A/B timing of the port's kernels across copies of the port: resolve,
+packet, occlusion, closest_hit (closest and occlusion modes) and brute,
+and of the grad leg and the fit step that run closest_hit.
 
     python3 tools/kernel_ab.py LABEL=DIR [LABEL=DIR ...] [--order a,b,b,a]
 
@@ -13,17 +14,26 @@ two versions are compared within one run, e.g. in the order a, b, b, a.
 
 A timed run checks resolve_kernel against ``resolve_plain``,
 packet_kernel against ``packet_plain`` (all four variants on 4096 + 17
-seeded rays, the primary rays on a sample) and occlusion_kernel against
-``occlusion_plain`` (a sample of the light rays of the primary hits, made
-as chip_smoke.py makes them), bit for bit, and prints one line
+seeded rays, the primary rays on a sample), occlusion_kernel against
+``occlusion_plain`` and closest_hit_kernel in occlusion mode against
+``closest_hit_plain`` (a sample of the light rays of the primary hits,
+made as chip_smoke.py makes them), closest_hit_kernel against
+``closest_hit_plain`` (4096 + 17 seeded rays in each triangle test and
+mode, the primary rays on a sample) and brute_kernel against
+``brute_plain`` (leaf-box gate on and off on the seeded rays, gate on on a
+sample of the primary rays), bit for bit, and prints one line
 ``RESULT <label> <json>``: the device ms (torch.profiler, chip_smoke.py's
 ``device_ms``; None when a window lost launches) and the call ms (CUDA
 events, ``cuda_ms``) of resolve_kernel and of ``index_select`` of the
-15-column attribute table, packet_kernel's device and call ms, its warp
-steps and SIMD efficiency where the copy counts them, occlusion_kernel's
-device and call ms, and the registers of the three kernels. The timers are those
-of this checkout's chip_smoke.py, whatever the copy holds. The card's
-name and power limit come first.
+15-column attribute table, of packet_kernel, occlusion_kernel,
+closest_hit_kernel in both modes and brute_kernel (gate on, as the brute
+renderer runs it), their counts where the copy's kernels give them
+(packet_kernel's and closest_hit_kernel's warp steps and SIMD efficiency,
+brute_kernel's gate and row tests), the brute renderer's frame (call ms),
+the grad leg and the fit step on scene 1 (``time_fit``), and the
+registers of the kernels. The timers are those of this checkout's
+chip_smoke.py, whatever the copy holds. The card's name and power limit
+come first.
 """
 import importlib.util
 import json
@@ -33,6 +43,9 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESOLVE_CALLS, PACKET_CALLS, REPEATS = 50, 10, 3
+FIT_CALLS, FIT_W, FIT_H = 5, 800, 600
+KERNELS = ("resolve", "packet_kernel", "occlusion", "closest_hit",
+           "brute_kernel")
 
 
 def smoke():
@@ -48,11 +61,13 @@ def time_one(label, root):
     sys.path.insert(0, root)
     import torch
     from raytracer_tpu_torch.accel import build_bvh, linearize
+    from raytracer_tpu_torch.accel.linearize import shape_leaf_boxes
     from raytracer_tpu_torch.config import RenderConfig
     from raytracer_tpu_torch.core import camera as cam_ops
-    from raytracer_tpu_torch.render import kernels, packet, split_scene
-    from raytracer_tpu_torch.render import whitted
-    from raytracer_tpu_torch.render.split import (closest_hit, resolve,
+    from raytracer_tpu_torch.render import (brute, kernels, packet,
+                                            split_scene, whitted)
+    from raytracer_tpu_torch.render.split import (closest_hit,
+                                                  closest_hit_plain, resolve,
                                                   resolve_plain)
     from raytracer_tpu_torch.scenes import generate_scene
     cs = smoke()
@@ -62,7 +77,7 @@ def time_one(label, root):
     kernels.library()
     out = dict(label=label, padded_table=padded, registers={
         name: regs for name, regs, _ in cs.ptxas_summary(log)
-        if name.startswith(("resolve", "packet_kernel", "occlusion"))})
+        if name.startswith(KERNELS)})
     ok = True
     gen = torch.Generator().manual_seed(5)
     for which in (1, 2):
@@ -141,10 +156,164 @@ def time_one(label, root):
             r["simd_efficiency"] = (st[0] + st[2]) / (32 * st[4])
         except ValueError:   # a copy whose packet_kernel counts 3
             pass
+        ok &= time_split(r, cs, split, (o, d), (lo, ld, dist), oq, dq,
+                         closest_hit, closest_hit_plain)
+        ok &= time_brute(r, cs, brute, sc, lin, shape_leaf_boxes, o, d, oq,
+                         dq, RenderConfig())
+        if which == 1:
+            ok &= time_fit(r, cs, sc, lin, split)
         out[f"scene {which}"] = r
     out["bit_exact"] = bool(ok)
     print("RESULT", label, json.dumps(out), flush=True)
     return 0 if ok else 1
+
+
+def time_split(r, cs, split, primary, light, oq, dq, closest_hit,
+               closest_hit_plain):
+    """closest_hit_kernel: bit-exact on the seeded rays (3 triangle tests x
+    closest and occlusion) and on samples; the device and call ms of the
+    closest mode on the primary rays and of the occlusion mode on the
+    light rays, with the warp steps where the copy counts them."""
+    import torch
+    ok = True
+    for mode in (0, 1, 2):
+        tk, gk = closest_hit(split, oq, dq, mode)
+        tp, gp = closest_hit_plain(split, oq, dq, mode)
+        ok &= torch.equal(tk, tp) and torch.equal(gk, gp)
+        lim = torch.where(tp < 1e30, tp * 0.7, 50.0)
+        ok &= all(torch.equal(a, b) for a, b in zip(
+            closest_hit(split, oq, dq, mode, max_t=lim),
+            closest_hit_plain(split, oq, dq, mode, max_t=lim)))
+    for name, (o, d, lim) in (("closest_hit", (*primary, None)),
+                              ("closest_hit_occlusion", light)):
+        def run(st=None):
+            return closest_hit(split, o, d, 1, max_t=lim, stats=st)
+        sub = torch.arange(0, o.shape[0], 97, device=o.device)
+        got = run()
+        want = closest_hit_plain(split, o[sub], d[sub], 1,
+                                 None if lim is None else lim[sub])
+        ok &= all(torch.equal(a[sub], b) for a, b in zip(got, want))
+        r[f"{name}_device_ms"] = [cs.device_ms(run, PACKET_CALLS)
+                                  for _ in range(REPEATS)]
+        r[f"{name}_call_ms"] = [cs.cuda_ms(run, PACKET_CALLS)
+                                for _ in range(REPEATS)]
+        try:
+            st = torch.zeros(5, dtype=torch.int64, device=o.device)
+            run(st)
+            st = st.tolist()
+            r[f"{name}_warp_node_row_steps"] = st[3:]
+            r[f"{name}_simd_efficiency"] = st[2] / max(32 * st[4], 1)
+        except ValueError:   # a copy whose closest_hit_kernel counts 3
+            pass
+    return ok
+
+
+def time_brute(r, cs, brute, sc, lin, shape_leaf_boxes, o, d, oq, dq, cfg):
+    """brute_kernel: bit-exact on the seeded rays (gate on and off, MT on
+    and off) and on a sample of the primary rays; the device and call ms
+    with the gate on, as the brute renderer runs it, the gate and row tests
+    where the copy counts them, and the brute renderer's frame (800x600, 3
+    bounces; call ms)."""
+    import torch
+    flat = sc.flat
+    perm, counts = brute.sort_scene_by_type(flat)
+    boxes = shape_leaf_boxes(lin, flat.num_shapes)
+    with_runs = hasattr(brute, "box_runs")
+    ok = True
+    for gate in (False, True):
+        rows = brute.pack_rows_ext(flat, perm, boxes if gate else None)
+        extra = (brute.box_runs(rows, counts, gate),) if with_runs else ()
+        for use_mt in (False, True):
+            tk, rk = brute.brute_hit(rows, counts, oq, dq, use_mt, gate,
+                                     *extra)
+            tp, rp = brute.brute_plain(rows, counts, oq, dq, use_mt, gate)
+            ok &= torch.equal(tk, tp) and torch.equal(rk, rp)
+
+    def run():
+        return brute.brute_hit(rows, counts, o, d, False, True, *extra)
+    sub = torch.arange(0, o.shape[0], 97, device=o.device)
+    tk, rk = run()
+    tp, rp = brute.brute_plain(rows, counts, o[sub], d[sub], False, True)
+    ok &= torch.equal(tk[sub], tp) and torch.equal(rk[sub], rp)
+    r["brute_device_ms"] = [cs.device_ms(run, PACKET_CALLS)
+                            for _ in range(REPEATS)]
+    r["brute_call_ms"] = [cs.cuda_ms(run, PACKET_CALLS)
+                          for _ in range(REPEATS)]
+    if with_runs:
+        st = torch.zeros(3, dtype=torch.int64, device=o.device)
+        brute.brute_hit(rows, counts, o, d, False, True, *extra, stats=st)
+        gates, tests, steps = st.tolist()
+        r["brute_runs"] = extra[0].shape[0]
+        r["brute_gates_row_tests_per_ray"] = [gates / o.shape[0],
+                                              tests / o.shape[0]]
+        r["brute_simd_efficiency"] = tests / max(32 * steps, 1)
+
+    def frame():
+        return brute.render(flat, lin, sc.camera, sc.light, cfg)
+    frame()
+    r["brute_frame_ms"] = [cs.cuda_ms(frame, PACKET_CALLS)
+                           for _ in range(REPEATS)]
+    return ok
+
+
+def time_fit(r, cs, sc, lin, split):
+    """The grad leg and the fit step of scene 1 at 800x600 x 3 bounces, as
+    chip_smoke.py phases 5f and 5g run them (``make_kernel_renderer``;
+    sphere 0's centre and colour off by 0.3 and x 0.8): the call ms (CUDA
+    events) of a forward, of a fwd+bwd and of one step of
+    ``fit_scene_params`` (SGD, lr 4), each over FIT_CALLS calls; of one
+    fwd+bwd (torch.profiler) the device ms of all its kernels and of its
+    closest_hit_kernel launches, and the idle share; the host ms of issuing
+    one fwd+bwd. False unless the loss and gradients are finite."""
+    import torch
+    from raytracer_tpu_torch import diff as rt_diff
+    from raytracer_tpu_torch.config import RenderConfig
+    cfg = RenderConfig(width=FIT_W, height=FIT_H, max_bounces=3)
+    renderer = rt_diff.make_kernel_renderer(lin, split)
+    flat = sc.flat
+    with torch.no_grad():
+        target = renderer(flat, sc.camera, sc.light, cfg)
+    init = {"sphere_center": torch.cat([flat.sphere_center[:1] + 0.3,
+                                        flat.sphere_center[1:]]),
+            "mat_color": torch.cat([flat.mat_color[:1] * 0.8,
+                                    flat.mat_color[1:]])}
+    leaves = [init["sphere_center"].clone().requires_grad_(True),
+              init["mat_color"].clone().requires_grad_(True)]
+
+    def loss():
+        s_ = flat.replace(sphere_center=leaves[0], mat_color=leaves[1])
+        return rt_diff.image_loss(renderer(s_, sc.camera, sc.light, cfg),
+                                  target)
+
+    def fwd():
+        with torch.no_grad():
+            return loss()
+
+    def fwd_bwd():
+        val = loss()
+        return (val,) + torch.autograd.grad(val, leaves)
+
+    def step():
+        return rt_diff.fit_scene_params(flat, sc.camera, sc.light, cfg,
+                                        target, init, steps=1, lr=4.0,
+                                        renderer=renderer)
+
+    val, *grads = fwd_bwd()
+    step()
+    r["fit_fwd_ms"] = [cs.cuda_ms(fwd, FIT_CALLS) for _ in range(REPEATS)]
+    r["fit_fwd_bwd_ms"] = [cs.cuda_ms(fwd_bwd, FIT_CALLS)
+                           for _ in range(REPEATS)]
+    r["fit_step_ms"] = [cs.cuda_ms(step, FIT_CALLS) for _ in range(REPEATS)]
+    r["fit_fwd_bwd_host_ms"] = cs.host_ms(fwd_bwd, FIT_CALLS)
+    times = cs.kernel_times(fwd_bwd)
+    if times:
+        busy = sum(t for _, t, _ in times)
+        r["fit_fwd_bwd_device_busy_ms"] = busy
+        r["fit_fwd_bwd_closest_hit_device_ms"] = sum(
+            t for k, t, _ in times if "closest_hit_kernel" in k)
+        r["fit_fwd_bwd_idle_share"] = 1 - busy / min(r["fit_fwd_bwd_ms"])
+    return bool(torch.isfinite(val)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
 
 
 def main(argv):
