@@ -5,7 +5,7 @@ card. Run from the repository root:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from csrc/ with nvcc and holds each kernel
-(wholeframe_kernel in its raygen, emit and consume modes,
+(wholeframe_kernel in its raygen, emit and consume modes, bit for bit,
 closest_hit_kernel, fused_kernel, resolve_kernel, packet_kernel,
 occlusion_kernel, brute_kernel, closest_attrs_kernel) against its plain
 PyTorch version on the card. Then it drives the main paths at 800x600
@@ -28,7 +28,9 @@ torch.profiler (the device), closest_hit_kernel on both scenes' primary
 rays and in occlusion mode on the light rays of their hits (the timed
 call held bit for bit against the plain version on every 97th ray), brute_kernel
 with its gate and row tests and a bound counted from the rows its gate
-leaves, the frames by CUDA events, and prints one
+leaves, the lockstep kernels' warp node and row steps and SIMD efficiency
+(wholeframe_kernel in its three modes, closest_hit_kernel, packet_kernel,
+occlusion_kernel), the frames by CUDA events, and prints one
 JSON line of the kernels and, last, {"ok": true, "device": {...}}. Any
 failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA device it exits non-zero at once.
@@ -75,10 +77,8 @@ HYBRID_ATOL = 1e-6
 # the plain versions differ on 0.12% of scene 2's pixels and 0.013% of
 # scene 1's.
 PER_BOUNCE_MAX_FRACTION = 0.005
-# The emit and consume modes against their plain versions: besides the
-# few flips over 1e-4 that phase 4 allows, every colour and state value
-# within this (the kernels round each operation as the plain versions do).
-MODE_ATOL = 2e-5
+# An odd frame size for phase 4: partial tiles and partial warps.
+ODD_W, ODD_H = 197, 149
 # Per-ray f32 operations of resolve_kernel (3 subtractions, |rel|^2 + eps,
 # sqrt, division, 3 blended normal components).
 OPS_RESOLVE = 25
@@ -464,25 +464,26 @@ def main() -> int:
         ("raw", dict(use_gram_tri=False)), ("mt+fresnel", dict(
             use_mt=True, use_fresnel=True)), ("no shadows, 5 bounces", dict(
                 enable_shadows=False, max_bounces=5)))]
+    variants.append((f"odd size {ODD_W}x{ODD_H}",
+                     small.replace(width=ODD_W, height=ODD_H)))
     for which, (sc, _, split, tab) in scenes.items():
         par = wf.make_params(sc.camera, sc.light)
-        for name, cfg in (variants if which == 1 else variants[:1]):
+        for name, cfg in variants:
             ik = wf.wholeframe(split, tab, par, cfg)
             ip = wf.wholeframe_plain(split, tab, par, cfg)
             diff = (ik - ip).abs().amax(-1)
-            flips = int((diff > 1e-4).sum())
-            rest = diff[diff <= 1e-4]
-            log(f"phase 4: scene {which} {CHECK_W}x{CHECK_H} {name}: max-abs "
-                f"{diff.max().item():.3g}, {int((diff > 2e-5).sum())} px > "
-                f"2e-5, {flips} px > 1e-4")
+            log(f"phase 4: scene {which} {cfg.width}x{cfg.height} {name}: "
+                f"max-abs {diff.max().item():.3g}, "
+                f"{int((diff > 0).sum())} px differ")
             check(bool(torch.isfinite(ik).all()), "non-finite pixels")
-            check(flips <= CHECK_W * CHECK_H // 1000,
+            check(torch.equal(ik, ip),
                   "wholeframe_kernel disagrees with wholeframe_plain")
             err["wholeframe_kernel"] = max(err["wholeframe_kernel"],
-                                           rest.max().item())
+                                           diff.max().item())
     held["wholeframe_kernel"].append(
         f"phase 4: {CHECK_W}x{CHECK_H}, {BOUNCES} bounces, scenes 1 and 2, "
-        "and raw / MT+Fresnel / unshadowed 5-bounce variants on scene 1")
+        f"default, raw, MT+Fresnel, unshadowed 5-bounce and {ODD_W}x{ODD_H}: "
+        "bit-exact")
     log(f"phase 4 done in {time.perf_counter() - t:.1f}s")
 
     # -- phase 4b: the emit and consume modes against the plain modes --------
@@ -505,29 +506,22 @@ def main() -> int:
                            rays=rays9, ret=ret)
         p9 = wf.wholeframe_plain(split, tab, par, small, bounces=BOUNCES - 1,
                                  rays=rays9, ret=ret)
-        cols = [(ck - cp).reshape(-1, 3), k6 - p6, k9 - p9]
-        states = [sk - sp_, ks6 - ps6]
-        c_diff = [c.abs().amax(-1) for c in cols]
-        s_diff = [x.abs().amax(0) for x in states]
-        c_err = max(c.max().item() for c in c_diff)
-        s_err = max(x.max().item() for x in s_diff)
-        flips = sum(int((c > 1e-4).sum()) for c in c_diff)
-        s_flips = sum(int((x > 1e-4).sum()) for x in s_diff)
-        rest = max(x[x <= 1e-4].max().item() for x in c_diff + s_diff)
+        pairs = [(ck, cp), (k6, p6), (k9, p9), (sk, sp_), (ks6, ps6)]
+        c_err = max((a - b).abs().max().item() for a, b in pairs[:3])
+        s_err = max((a - b).abs().max().item() for a, b in pairs[3:])
         log(f"phase 4b: scene {which} {CHECK_W}x{CHECK_H}: emit (bounce 1) "
             f"and consume (bounces 2-{BOUNCES}, 6 and 9 rows, sorted "
             f"stream, {int((sp_[0] >= 1e30).sum())} parked): colour max-abs "
-            f"{c_err:.3g}, state max-abs {s_err:.3g}, {flips} px and "
-            f"{s_flips} rays > 1e-4, max-abs of the rest {rest:.3g}")
+            f"{c_err:.3g}, state max-abs {s_err:.3g}")
         check(bool(torch.isfinite(ck).all() and torch.isfinite(k6).all()),
               "non-finite pixels")
-        check(flips + s_flips <= CHECK_W * CHECK_H // 1000
-              and rest <= MODE_ATOL,
+        check(all(torch.equal(a, b) for a, b in pairs),
               "emit/consume modes disagree with wholeframe_plain")
-        err["wholeframe_kernel"] = max(err["wholeframe_kernel"], rest)
+        err["wholeframe_kernel"] = max(err["wholeframe_kernel"], c_err,
+                                       s_err)
     held["wholeframe_kernel"].append(
         f"phase 4b: emit and consume modes at {CHECK_W}x{CHECK_H}, "
-        f"{BOUNCES} bounces, scenes 1 and 2 (colours and state)")
+        f"{BOUNCES} bounces, scenes 1 and 2 (colours and state): bit-exact")
     log(f"phase 4b done in {time.perf_counter() - t:.1f}s")
 
     # -- phase 5: the main path at full width ---------------------------------
@@ -878,6 +872,7 @@ def main() -> int:
 
     k1 = {}
     stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    wstats = torch.zeros(5, dtype=torch.int64, device=dev)
     for which, (sc, _, split, tab) in scenes.items():
         par = wf.make_params(sc.camera, sc.light)
         ms = cuda_ms(lambda: wf.wholeframe(split, tab, par, cfg),
@@ -887,20 +882,23 @@ def main() -> int:
         t = time.perf_counter()
         plain_ms = cuda_ms(lambda: wf.wholeframe_plain(split, tab, par, cfg),
                            1)
-        stats.zero_()
-        wf.wholeframe(split, tab, par, cfg, stats=stats)
-        bound, ops, by = bound_ms(stats, split,
+        wstats.zero_()
+        wf.wholeframe(split, tab, par, cfg, stats=wstats)
+        bound, ops, by = bound_ms(wstats[:3], split,
                                   out_bytes=FRAME_W * FRAME_H * 12,
                                   in_bytes=table_bytes(split)
                                   + tab.numel() * 4 + par.numel() * 4)
+        steps = warp_steps(wstats, frame_warps(FRAME_W, FRAME_H))
         k1[which] = dict(ms=ms, device_ms=dms, plain_ms=plain_ms,
-                         bound_ms=bound, bound_by=by, tests=stats.tolist())
-        per_px = [round(x / (FRAME_W * FRAME_H), 1) for x in stats.tolist()]
+                         bound_ms=bound, bound_by=by,
+                         tests=wstats.tolist()[:3], **steps)
+        per_px = [round(x / (FRAME_W * FRAME_H), 1)
+                  for x in wstats.tolist()[:3]]
         log(f"scene {which}: wholeframe_kernel {ms:.3f} ms (device "
             f"{fmt(dms)}), wholeframe_plain "
             f"{plain_ms:.1f} ms ({time.perf_counter() - t:.1f}s); tests per "
-            f"pixel {per_px} (pre, node, triangle), {ops:.3g} ops -> bound "
-            f"{bound:.4f} ms")
+            f"pixel {per_px} (pre, node, triangle; the shadow legs' any-hit)"
+            f", {ops:.3g} ops -> bound {bound:.4f} ms; {fmt_steps(steps)}")
     k1_ms, k1_plain_ms = k1[1]["ms"], k1[1]["plain_ms"]
     k1_bound, k1_by = k1[1]["bound_ms"], k1[1]["bound_by"]
     sc, lin, split, tab = scenes[1]
@@ -934,21 +932,16 @@ def main() -> int:
             bound, _, by = bound_ms(st5[:3], split, out_bytes=n * 8,
                                     in_bytes=table_bytes(split) + n * (
                                         24 if lim is None else 28))
-            lanes, (w_node, w_row) = st5.tolist()[:3], st5.tolist()[3:]
-            warps = -(-n // 32)
+            lanes = st5.tolist()[:3]
+            steps = warp_steps(st5, -(-n // 32))
             k2.setdefault(which, {})[mode] = dict(
                 ms=ms, device_ms=dms, plain_ms=plain_ms, rays=n,
-                bound_ms=bound, bound_by=by, tests=lanes,
-                node_steps_per_warp=w_node / warps,
-                row_steps_per_warp=w_row / warps,
-                simd_efficiency=lanes[2] / max(32 * w_row, 1))
+                bound_ms=bound, bound_by=by, tests=lanes, **steps)
             log(f"scene {which}: closest_hit_kernel {mode} {ms:.3f} ms "
                 f"(device {fmt(dms)}), closest_hit_plain {plain_ms:.1f} ms "
                 f"({n} {'primary' if lim is None else 'light'} rays); "
-                f"tests {lanes} (pre, node, triangle), node / row steps a "
-                f"warp {w_node / warps:.2f} / {w_row / warps:.2f}, SIMD "
-                f"efficiency {lanes[2] / max(32 * w_row, 1):.3f}; bound "
-                f"{bound:.4f} ms ({by})")
+                f"tests {lanes} (pre, node, triangle), {fmt_steps(steps)}; "
+                f"bound {bound:.4f} ms ({by})")
     held["closest_hit_kernel"].append(
         "timing: every 97th of the timed rays (the primary rays, closest; "
         "the light rays of their hits, occlusion), scenes 1 and 2: "
@@ -1019,32 +1012,36 @@ def main() -> int:
             TIMED_FRAMES)
         n = FRAME_W * FRAME_H
         fixed = table_bytes(split) + tab.numel() * 4 + par.numel() * 4
-        stats.zero_()
+        wstats.zero_()
         wf.wholeframe(split, tab, par, cfg, bounces=1, emit_state=True,
-                      stats=stats)
-        e_bound, _, e_by = bound_ms(stats, split, out_bytes=n * 12 + n * 36,
+                      stats=wstats)
+        e_bound, _, e_by = bound_ms(wstats[:3], split,
+                                    out_bytes=n * 12 + n * 36,
                                     in_bytes=fixed)
-        e_tests = stats.tolist()
-        stats.zero_()
+        e_tests = wstats.tolist()[:3]
+        e_steps = warp_steps(wstats, frame_warps(FRAME_W, FRAME_H))
+        wstats.zero_()
         wf.wholeframe(split, tab, par, cfg, bounces=BOUNCES - 1, rays=rays,
-                      ret=ret, stats=stats)
-        c_bound, _, c_by = bound_ms(stats, split, out_bytes=n * 12,
+                      ret=ret, stats=wstats)
+        c_bound, _, c_by = bound_ms(wstats[:3], split, out_bytes=n * 12,
                                     in_bytes=fixed + n * (24 + 4))
-        c_tests = stats.tolist()
+        c_tests = wstats.tolist()[:3]
+        c_steps = warp_steps(wstats, -(-n // 32))
         live = int((state[0] < 1e30).sum())
         parts[which] = dict(emit_ms=e_ms, repack_unsort_composite_ms=g_ms,
                             continuation_ms=c_ms, glue_parts_ms=glue_ms,
                             live_after_bounce_1=live)
         modes[which] = {
             "raygen+emit": dict(ms=e_ms, device_ms=e_dms, bound_ms=e_bound,
-                                bound_by=e_by, tests=e_tests),
+                                bound_by=e_by, tests=e_tests, **e_steps),
             "consume": dict(ms=c_ms, device_ms=c_dms, bound_ms=c_bound,
-                            bound_by=c_by, tests=c_tests)}
+                            bound_by=c_by, tests=c_tests, **c_steps)}
         log(f"scene {which} hybrid parts: emit {e_ms:.3f} ms (device "
-            f"{fmt(e_dms)}, bound {e_bound:.4f}), re-pack + un-sort + "
-            f"composite {g_ms:.3f} ms, continuation {c_ms:.3f} ms (device "
-            f"{fmt(c_dms)}, bound {c_bound:.4f}; {live} of "
-            f"{n} rays live after bounce 1); the glue alone: "
+            f"{fmt(e_dms)}, bound {e_bound:.4f}; {fmt_steps(e_steps)}), "
+            f"re-pack + un-sort + composite {g_ms:.3f} ms, continuation "
+            f"{c_ms:.3f} ms (device {fmt(c_dms)}, bound {c_bound:.4f}; "
+            f"{fmt_steps(c_steps)}; {live} of {n} rays live after bounce "
+            "1); the glue alone: "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in glue_ms.items()))
     sc, lin, split, tab = scenes[2]
     par = wf.make_params(sc.camera, sc.light)
@@ -1190,24 +1187,16 @@ def main() -> int:
                 extra["bound_ms_every_row"] = bound_of(
                     in_bytes=in_b, out_bytes=out_b, ops=every)[0]
             else:
+                # the warp walk's lockstep steps too: node steps and row
+                # steps summed over the warps
                 st5 = torch.zeros(5, dtype=torch.int64, device=dev)
-                st_ = st5 if name == "packet_kernel" else stats
-                st_.zero_()
-                with_stats(st_)
-                other, node, tri = st_.tolist()[:3]
+                with_stats(st5)
+                other, node, tri, w_node, w_row = st5.tolist()
                 ops = (other * row_ops_other(sc.flat) + node * OPS_NODE_CULL
                        + tri * OPS_ROW[3])
-                tests = dict(other_rows=other, nodes=node, triangles=tri)
-                if name == "packet_kernel":
-                    # the warp walk's lockstep steps: node steps and row
-                    # steps summed over the warps
-                    w_node, w_row = st_.tolist()[3:]
-                    warps = -(-n // 32)
-                    tests.update(
-                        warp_node_steps=w_node, warp_row_steps=w_row,
-                        node_steps_per_warp=w_node / warps,
-                        row_steps_per_warp=w_row / warps,
-                        simd_efficiency=(other + tri) / max(32 * w_row, 1))
+                tests = dict(other_rows=other, nodes=node, triangles=tri,
+                             warp_node_steps=w_node, warp_row_steps=w_row,
+                             **warp_steps(st5, -(-n // 32), other + tri))
             bound, by = bound_of(in_bytes=in_b, out_bytes=out_b, ops=ops)
             k678.setdefault(name, {})[which] = dict(
                 ms=ms, device_ms=dms, plain_ms=plain_ms, plain_rays=N_RAYS,
@@ -1325,6 +1314,22 @@ def main() -> int:
         + ("(not measured)" if busy is None else
            f"{busy:.3f} ms ({ours:.3f} in csrc kernels), idle share "
            f"{1 - busy / fwd_bwd_ms:.3f}"))
+
+    # the lockstep kernels' warp steps side by side
+    lockstep = {}
+    for which in scenes:
+        lockstep[f"scene {which} wholeframe_kernel raygen"] = k1[which]
+        lockstep[f"scene {which} wholeframe_kernel raygen+emit"] = \
+            modes[which]["raygen+emit"]
+        lockstep[f"scene {which} wholeframe_kernel consume"] = \
+            modes[which]["consume"]
+        for mode in ("closest", "occlusion"):
+            lockstep[f"scene {which} closest_hit_kernel {mode}"] = \
+                k2[which][mode]
+        for name in ("packet_kernel", "occlusion_kernel"):
+            lockstep[f"scene {which} {name}"] = k678[name][which]["tests"]
+    for k, v in lockstep.items():
+        log(f"lockstep walks: {k}: {fmt_steps(v)}")
 
     rows = [
         dict(name="wholeframe_kernel", route="cuda",
@@ -1596,6 +1601,29 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def frame_warps(w_img, h_img):
+    """Warps of wholeframe_kernel's raygen grid: 4 a TILE_W x TILE_H tile
+    of 8 x 16 pixels."""
+    return 4 * -(-w_img // 8) * -(-h_img // 16)
+
+
+def warp_steps(st, warps, lane_rows=None):
+    """Node and row steps a warp and the SIMD efficiency (lane row tests
+    over 32 x the row steps; by default the lanes' triangle tests) from a
+    lockstep kernel's 5 counts."""
+    lanes, (w_node, w_row) = st.tolist()[:3], st.tolist()[3:]
+    lane_rows = lanes[2] if lane_rows is None else lane_rows
+    return dict(node_steps_per_warp=w_node / warps,
+                row_steps_per_warp=w_row / warps,
+                simd_efficiency=lane_rows / max(32 * w_row, 1))
+
+
+def fmt_steps(steps):
+    return (f"node / row steps a warp {steps['node_steps_per_warp']:.2f} / "
+            f"{steps['row_steps_per_warp']:.2f}, SIMD efficiency "
+            f"{steps['simd_efficiency']:.3f}")
 
 
 def table_bytes(split):

@@ -8,6 +8,12 @@
 //   pixel) and consume_state (one thread per given ray: o, d, [atten] and
 //   the image-order pixel index, from which the background is re-derived;
 //   it may emit again). The hybrid launches it on a re-sorted ray stream.
+//   A warp traces its 32 pixels (an 8x4 patch) or rays in lockstep
+//   (raytrace.cuh::warp_trace): one vote a bounce while some ray lives;
+//   per bounce the closest hit by closest_hit_kernel's split walk, the id
+//   and normal read once from the winning row, and the shadow leg as the
+//   split walk's any-hit mode below the light distance; shading per lane;
+//   bit for bit the per-thread trace (trace_ray).
 // closest_hit_kernel replaces raytracer_tpu/render/pallas_split.py::
 //   _split_kernel / _split_body (961-964, 343-651): closest hit (t, gid) or
 //   occlusion against a per-ray limit. A warp walks its 32 rays in
@@ -43,8 +49,10 @@
 //   type branch for the warp); each lane tests ROW_ILP rows before it
 //   updates, so that their arithmetic overlaps.
 // occlusion_kernel replaces pallas_bvh.py::_occlusion_kernel (268-355):
-//   one thread per ray walks the tree alone (packet_walk), returning at
-//   the first inner hit below max_t.
+//   packet_kernel's warp walk in any-hit mode (warp_walk<..., true>): each
+//   lane leaves the walk at its first inner hit below its max_t, the warp
+//   stops reading a leaf once no lane probes it and leaves the tree once
+//   no lane is left.
 // brute_kernel replaces raytracer_tpu/render/pallas_kernel.py::
 //   _closest_hit_kernel (95-243): every row in type-sorted order, optionally
 //   gated by each row's leaf box. The gate comes first, once per run of
@@ -57,24 +65,25 @@
 // bytes. The tables (0.25 MB for scene 1, 0.85 MB for scene 2) stay in L2
 // and L1; a pixel's walks do tens to a hundred pre-pass, node and triangle
 // tests of 27-71 f32 operations each (chip_smoke.py counts them). The
-// per-thread kernels are the simple design: a stackless walk, scalar loads
-// through the read-only cache, threads of a warp on an 8x4 pixel patch (or
-// on neighbours of the sorted stream) so that they walk similar nodes;
-// divergence between the lanes of a warp is what they leave on the table,
-// most in occlusion_kernel on scene 2's leaf of 707 shapes. packet_kernel
-// keeps its lanes in step instead: on scene 2's 800x600 primary rays 83%
-// of the lanes of a row step test the row, and it takes 0.63 ms against
-// an operations bound of 0.047 ms (scene 1: 0.10 ms against 0.0046 ms of
-// bytes; NVIDIA H100 80GB HBM3 at 700 W, device time from
-// chip_smoke.py), held back by the latency of each lane's chain of row
-// tests more than by issue slots; closest_hit_kernel's split walk keeps
-// its lanes in step the same way. resolve_kernel does no walk: it moves 16
-// bytes in and 44 out per ray and is bound by bytes (0.0087 ms on 480,000
-// rays); it takes 0.0100-0.0103 ms on the device, 0.85-0.87 of that bound
-// (index_select of the rows alone: 0.021-0.022 ms). brute_kernel is bound
-// by operations: its gates (one a run, 985-1,059 a ray on scenes 1 and 2)
-// and the row tests of the runs whose box some lane of the warp hits
-// (0.9% of the rows on scene 1, 5.9% on scene 2, tools/host_check.py).
+// per-thread kernels (fused_kernel, closest_attrs_kernel) are the simple
+// design: a stackless walk, scalar loads through the read-only cache,
+// threads of a warp on neighbouring rays so that they walk similar nodes;
+// divergence between the lanes of a warp is what they leave on the table.
+// The lockstep kernels keep a warp's lanes in step instead: on scene 2's
+// 800x600 primary rays 83% of the lanes of packet_kernel's row steps test
+// the row, and it takes 0.63 ms against an operations bound of 0.047 ms
+// (scene 1: 0.10 ms against 0.0046 ms of bytes; NVIDIA H100 80GB HBM3 at
+// 700 W, device time from chip_smoke.py), held back by the latency of
+// each lane's chain of row tests more than by issue slots;
+// closest_hit_kernel's split walk, wholeframe_kernel's trace and
+// occlusion_kernel keep their lanes in step the same way. resolve_kernel
+// does no walk: it moves 16 bytes in and 44 out per ray and is bound by
+// bytes (0.0087 ms on 480,000 rays); it takes 0.0100-0.0103 ms on the
+// device, 0.85-0.87 of that bound (index_select of the rows alone:
+// 0.021-0.022 ms). brute_kernel is bound by operations: its gates (one a
+// run, 985-1,059 a ray on scenes 1 and 2) and the row tests of the runs
+// whose box some lane of the warp hits (0.9% of the rows on scene 1, 5.9%
+// on scene 2, tools/host_check.py).
 //
 // Each launcher returns cudaGetLastError() after the launch; the Python
 // wrapper raises if it is not 0. Launches go on the caller's stream and
@@ -85,8 +94,6 @@
 
 namespace rt {
 
-constexpr int TILE_W = 8, TILE_H = 16, BLOCK = TILE_W * TILE_H;
-
 __device__ __forceinline__ void add_stats(unsigned long long* stats,
                                           const Counts& c) {
   if (stats != nullptr) {
@@ -96,58 +103,79 @@ __device__ __forceinline__ void add_stats(unsigned long long* stats,
   }
 }
 
-// rays (consume mode): n_rows (6 or 9) rows of n floats, o, d and, with 9
-// rows, the entry attenuation (else 1); ret: the rays' image-order pixel
-// indices y * W + x. out: (n, 3) colours, in image order in raygen mode
-// (n = W * H). state (emit): 9 rows of n floats, o, d, atten.
+// A lockstep walk's node and row steps (stats 3 and 4), once a warp.
+__device__ __forceinline__ void add_warp_stats(unsigned long long* stats,
+                                               const WarpCounts& wc) {
+  if (stats != nullptr && (threadIdx.x & 31) == 0) {
+    atomicAdd(stats + 3, (unsigned long long)wc.node);
+    atomicAdd(stats + 4, (unsigned long long)wc.row);
+  }
+}
+
+// The card's lane policy of warp_walk (raytrace.cuh): a thread is one lane
+// and votes with its warp; a leaf's rows go to shared memory with cp.async
+// (16 bytes a lane in turn; .ca keeps them in L1 too, for the next warps
+// that enter the leaf), awaited with cp.async.wait_group and made visible
+// to the warp by __syncwarp.
+struct CardWarp {
+  static constexpr int N = 1;
+  __device__ static __forceinline__ bool any(const bool* v) {
+    return __any_sync(0xffffffffu, v[0]);
+  }
+  __device__ static __forceinline__ void sync() { __syncwarp(); }
+  __device__ static __forceinline__ void stage(float* dst, const float* src,
+                                               int n16) {
+    for (int q = (int)(threadIdx.x & 31); q < n16; q += 32) {
+      unsigned s = (unsigned)__cvta_generic_to_shared(dst + 4 * q);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                   "l"(src + 4 * q)
+                   : "memory");
+    }
+  }
+  __device__ static __forceinline__ void commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  __device__ static __forceinline__ void wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+  __device__ static __forceinline__ void wait_but_one() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  }
+};
+
+// wholeframe_kernel: the lockstep frame trace (raytrace.cuh::warp_trace),
+// one warp of 32 pixels or rays (trace_entry). Every thread of a warp
+// stays to the end: a thread past the frame or the rays is a lane that
+// never walks, and only its stores are skipped. out: (n, 3) colours, in
+// image order in raygen mode (n = W * H). state (emit): 9 rows of n
+// floats, o, d, atten. stats: the lanes' pre-pass, node and triangle tests
+// (0-2; closest walks and shadow legs) and the warps' node and row steps
+// (3, 4). At least 4 blocks an SM lets ptxas use up to 128 registers: it
+// takes 80-94 and spills none, where with BLOCK alone it took 80 and
+// spilled up to 112 bytes (MT variants), at equal or lower times (NVIDIA
+// H100 80GB HBM3 at 700 W, tools/kernel_ab.py; the staging buffers allow
+// 6 blocks an SM, the registers 5-6).
 template <int TRI, bool CONSUME, bool EMIT>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, 4)
 wholeframe_kernel(Tables s, const float* __restrict__ tab,
                   const float* __restrict__ par,
                   const float* __restrict__ rays, int n_rows,
                   const int* __restrict__ ret, int n,
                   float* __restrict__ out, float* __restrict__ state,
                   int W, int H, Shade sh, unsigned long long* stats) {
-  Params q = load_params(par);
-  State st;
-  float bg[3];
-  long long i;
-  if (CONSUME) {
-    i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-    if (i >= n) return;
-    st.ox = rays[i];
-    st.oy = rays[n + i];
-    st.oz = rays[2LL * n + i];
-    st.dx = rays[3LL * n + i];
-    st.dy = rays[4LL * n + i];
-    st.dz = rays[5LL * n + i];
-    if (n_rows == 9) {
-      st.atr = rays[6LL * n + i];
-      st.atg = rays[7LL * n + i];
-      st.atb = rays[8LL * n + i];
-    } else {
-      st.atr = 1.0f; st.atg = 1.0f; st.atb = 1.0f;
-    }
-    background((float)(ret[i] / W) + q.y_off, H, bg);
-  } else {
-    int x = blockIdx.x * TILE_W + (int)(threadIdx.x % TILE_W);
-    int y = blockIdx.y * TILE_H + (int)(threadIdx.x / TILE_W);
-    if (x >= W || y >= H) return;
-    i = (long long)y * W + x;
-    primary_ray(q, x, y, W, H, st, bg);
+  __shared__ __align__(16) float rows_buf[BLOCK / 32][2 * SPLIT_CHUNK_FLOATS];
+  TraceLane a;
+  int i = trace_entry<CONSUME>(a, load_params(par), rays, n_rows, ret, n, W,
+                               H, (int)blockIdx.x, (int)blockIdx.y,
+                               (int)threadIdx.x);
+  WarpCounts wc = {0u, 0u};
+  warp_trace<CardWarp, TRI>(s, tab, par, sh, &a, nullptr,
+                            rows_buf[threadIdx.x >> 5], wc);
+  if (i >= 0) {
+    trace_store<EMIT>(a, i, n, out, state);
+    add_stats(stats, a.c);
   }
-  Counts c = {0u, 0u, 0u};
-  float rgb[3];
-  trace_ray<TRI>(s, tab, q, sh, bg, st, c, rgb);
-  out[3 * i] = rgb[0];
-  out[3 * i + 1] = rgb[1];
-  out[3 * i + 2] = rgb[2];
-  if (EMIT) {
-    const float v[9] = {st.ox, st.oy, st.oz, st.dx, st.dy, st.dz,
-                        st.atr, st.atg, st.atb};
-    for (int k = 0; k < 9; ++k) state[k * (long long)n + i] = v[k];
-  }
-  add_stats(stats, c);
+  add_warp_stats(stats, wc);
 }
 
 template <int TRI>
@@ -227,37 +255,6 @@ resolve_kernel(const float4* __restrict__ tab, int n_tab,
   for (int k = 0; k < 11; ++k) out[k * (long long)n + i] = a[k];
 }
 
-// The card's lane policy of warp_walk (raytrace.cuh): a thread is one lane
-// and votes with its warp; a leaf's rows go to shared memory with cp.async
-// (16 bytes a lane in turn; .ca keeps them in L1 too, for the next warps
-// that enter the leaf), awaited with cp.async.wait_group and made visible
-// to the warp by __syncwarp.
-struct CardWarp {
-  static constexpr int N = 1;
-  __device__ static __forceinline__ bool any(const bool* v) {
-    return __any_sync(0xffffffffu, v[0]);
-  }
-  __device__ static __forceinline__ void sync() { __syncwarp(); }
-  __device__ static __forceinline__ void stage(float* dst, const float* src,
-                                               int n16) {
-    for (int q = (int)(threadIdx.x & 31); q < n16; q += 32) {
-      unsigned s = (unsigned)__cvta_generic_to_shared(dst + 4 * q);
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                   "l"(src + 4 * q)
-                   : "memory");
-    }
-  }
-  __device__ static __forceinline__ void commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
-  __device__ static __forceinline__ void wait_all() {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  }
-  __device__ static __forceinline__ void wait_but_one() {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  }
-};
-
 constexpr int PK_BLOCK = 128, PK_WARPS = PK_BLOCK / 32;
 
 // o, d: (n, 3). packet_kernel: t and the local row of the closest hit, by
@@ -285,30 +282,38 @@ packet_kernel(Tree s, const float* __restrict__ o,
     row_out[i] = a.row;
     add_stats(stats, a.c);
   }
-  if (stats != nullptr && (threadIdx.x & 31) == 0) {
-    atomicAdd(stats + 3, (unsigned long long)wc.node);
-    atomicAdd(stats + 4, (unsigned long long)wc.row);
-  }
+  add_warp_stats(stats, wc);
 }
 
-// occlusion_kernel: 1 where some inner hit has t < max_t[i].
+// occlusion_kernel: 1 where some inner hit has t < max_t[i], by the warp
+// walk in occlusion mode (raytrace.cuh::warp_walk<..., true>); threads and
+// stats as in packet_kernel.
 template <bool MT, bool CULL>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(PK_BLOCK)
 occlusion_kernel(Tree s, const float* __restrict__ o,
                  const float* __restrict__ d,
                  const float* __restrict__ max_t, int n,
                  unsigned char* __restrict__ occ_out,
                  unsigned long long* stats) {
-  int i = blockIdx.x * BLOCK + (int)threadIdx.x;
-  if (i >= n) return;
-  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
-                   d[3 * i + 1], d[3 * i + 2]);
-  Counts c = {0u, 0u, 0u};
-  float t;
-  int row;
-  occ_out[i] = packet_walk<MT, CULL, true>(s, r, max_t[i], c, t, row) ? 1
-                                                                      : 0;
-  add_stats(stats, c);
+  __shared__ __align__(16) float rows_buf[PK_WARPS][2 * CHUNK_FLOATS];
+  int i = blockIdx.x * PK_BLOCK + (int)threadIdx.x;
+  bool live = i < n;
+  Ray r = make_ray(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
+  float limit = INF;
+  if (live) {
+    r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                 d[3 * i + 1], d[3 * i + 2]);
+    limit = max_t[i];
+  }
+  Lane a;
+  lane_init(a, s, live, r, limit);
+  WarpCounts wc = {0u, 0u};
+  warp_walk<CardWarp, MT, CULL, true>(s, &a, rows_buf[threadIdx.x >> 5], wc);
+  if (live) {
+    occ_out[i] = a.occ ? 1 : 0;
+    add_stats(stats, a.c);
+  }
+  add_warp_stats(stats, wc);
 }
 
 constexpr int SPLIT_BLOCK = 128, SPLIT_WARPS = SPLIT_BLOCK / 32;
@@ -344,14 +349,11 @@ closest_hit_kernel(Tables s, const float* __restrict__ o,
       gid_out[i] = -1;
     } else {
       t_out[i] = a.t;
-      gid_out[i] = (int)a.id;
+      gid_out[i] = (int)split_id(s, a, G_GID, T_GID);
     }
     add_stats(stats, a.c);
   }
-  if (stats != nullptr && (threadIdx.x & 31) == 0) {
-    atomicAdd(stats + 3, (unsigned long long)wc.node);
-    atomicAdd(stats + 4, (unsigned long long)wc.row);
-  }
+  add_warp_stats(stats, wc);
 }
 
 // brute_kernel's lane policy: CardWarp's votes, with the run table staged
@@ -531,24 +533,23 @@ int rt_resolve(const float* tab, int n_tab, const float* gid, const float* p,
   return (int)cudaGetLastError();
 }
 
-// max_t null: packet_kernel (t_out, row_out; stats of 5 counts); else
-// occlusion_kernel (occ_out; stats of 3).
+// max_t null: packet_kernel (t_out, row_out); else occlusion_kernel
+// (occ_out). stats: 5 counts.
 int rt_packet(const int* leaf_start, const int* leaf_count, const int* skip,
               const float* nodes, const float* rows, int m, const float* o,
               const float* d, const float* max_t, int n, float* t_out,
               int* row_out, unsigned char* occ_out, int use_mt, int t_cull,
               unsigned long long* stats, void* stream) {
   rt::Tree s = {leaf_start, leaf_count, skip, nodes, rows, m};
-  int grid = (n + rt::BLOCK - 1) / rt::BLOCK;
-  int pk_grid = (n + rt::PK_BLOCK - 1) / rt::PK_BLOCK;
+  int grid = (n + rt::PK_BLOCK - 1) / rt::PK_BLOCK;
   cudaStream_t st = (cudaStream_t)stream;
 #define RT_LAUNCH(MT, CULL)                                               \
   do {                                                                    \
     if (max_t == nullptr)                                                 \
-      rt::packet_kernel<MT, CULL><<<pk_grid, rt::PK_BLOCK, 0, st>>>(      \
+      rt::packet_kernel<MT, CULL><<<grid, rt::PK_BLOCK, 0, st>>>(         \
           s, o, d, n, t_out, row_out, stats);                             \
     else                                                                  \
-      rt::occlusion_kernel<MT, CULL><<<grid, rt::BLOCK, 0, st>>>(         \
+      rt::occlusion_kernel<MT, CULL><<<grid, rt::PK_BLOCK, 0, st>>>(      \
           s, o, d, max_t, n, occ_out, stats);                             \
   } while (0)
   if (use_mt) {

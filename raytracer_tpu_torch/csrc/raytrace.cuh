@@ -14,12 +14,14 @@
 //
 // The spec is the per-ray result, not the TPU's packet mechanics: a lane's
 // hit never depends on which other rays share its packet, so each thread
-// walks the skip-pointer tree alone, or (packet_kernel's warp_walk) a warp
-// walks it in lockstep while each lane still evaluates exactly its own
-// walk's nodes and rows. Every arithmetic expression keeps the
-// JAX kernel's order of operations; build with -fmad=false so that no
-// multiply-add is contracted and edge accepts stay in step with the plain
-// PyTorch versions. min/max propagate NaN like jnp.minimum/jnp.maximum
+// walks the skip-pointer tree alone (closest_walk, occluded, packet_walk,
+// trace_ray: fused_kernel's and closest_attrs_kernel's walks, and the
+// per-lane references of tools/host_check.py), or a warp walks it in
+// lockstep (warp_walk, split_walk, warp_trace, brute_walk) while each lane
+// still evaluates exactly its own walk's nodes and rows. Every arithmetic
+// expression keeps the JAX kernel's order of operations; build with
+// -fmad=false so that no multiply-add is contracted and edge accepts stay
+// in step with the plain PyTorch versions. min/max propagate NaN like jnp.minimum/jnp.maximum
 // (the slab test relies on IEEE 1/0 = inf and on NaN failing compares).
 #pragma once
 
@@ -384,25 +386,35 @@ __device__ bool occluded(const Tables& s, const Ray& r, float limit,
 }
 
 
-// Camera and light scalars of the frame (the JAX kernel's par row):
-// light pos(3) + color(3), camera pos/front/right/up (12), half_w, half_h,
-// pixel-row offset of the window.
+// The frame's scalars are the JAX kernel's par row: light pos(3) +
+// color(3), camera pos/front/right/up (12), half_w, half_h, pixel-row
+// offset of the window. Params holds the camera's, for the primary rays;
+// the light's are read from the row where they are used (load_light), so
+// that no register holds them across the walks.
 struct Params {
-  float lx, ly, lz, lcr, lcg, lcb;
   float cpx, cpy, cpz, fx, fy, fz, rx, ry, rz, ux, uy, uz;
   float half_w, half_h, y_off;
 };
 
 __device__ __forceinline__ Params load_params(const float* par) {
   Params q;
-  q.lx = ld(par + 0); q.ly = ld(par + 1); q.lz = ld(par + 2);
-  q.lcr = ld(par + 3); q.lcg = ld(par + 4); q.lcb = ld(par + 5);
   q.cpx = ld(par + 6); q.cpy = ld(par + 7); q.cpz = ld(par + 8);
   q.fx = ld(par + 9); q.fy = ld(par + 10); q.fz = ld(par + 11);
   q.rx = ld(par + 12); q.ry = ld(par + 13); q.rz = ld(par + 14);
   q.ux = ld(par + 15); q.uy = ld(par + 16); q.uz = ld(par + 17);
   q.half_w = ld(par + 18); q.half_h = ld(par + 19); q.y_off = ld(par + 20);
   return q;
+}
+
+struct Light {
+  float x, y, z, r, g, b;
+};
+
+__device__ __forceinline__ Light load_light(const float* par) {
+  Light lt;
+  lt.x = ld(par + 0); lt.y = ld(par + 1); lt.z = ld(par + 2);
+  lt.r = ld(par + 3); lt.g = ld(par + 4); lt.b = ld(par + 5);
+  return lt;
 }
 
 struct Shade {
@@ -417,19 +429,20 @@ struct State {
 };
 
 // Background mix(dark, sky, y/H) of image row yi (the raygen branch's
-// arithmetic; the consume branch derives yi from the pixel index).
-__device__ __forceinline__ void background(float yi, int H, float* bg) {
-  float f_bg = yi / (float)H;
+// arithmetic; the consume branch derives yi from the pixel index): f_bg =
+// yi / H, then bg = dark + (sky - dark) * f_bg where a ray misses.
+__device__ __forceinline__ void background(float f_bg, float* bg) {
   bg[0] = BG_DARK_R + BG_SPAN_R * f_bg;
   bg[1] = BG_DARK_G + BG_SPAN_G * f_bg;
   bg[2] = BG_DARK_B + BG_SPAN_B * f_bg;
 }
 
-// Raygen: the primary ray and background of pixel (x, y) from the camera
-// scalars (core/camera.get_rays + pixel_ndc, term by term).
+// Raygen: the primary ray and background fraction f_bg of pixel (x, y)
+// from the camera scalars (core/camera.get_rays + pixel_ndc, term by
+// term).
 __device__ __forceinline__ void primary_ray(const Params& q, int x, int y,
                                             int W, int H, State& st,
-                                            float* bg) {
+                                            float& f_bg) {
   float xi = (float)x;
   float yi = (float)y + q.y_off;
   float ndc_x = 2.0f * xi / (float)W - 1.0f;
@@ -441,127 +454,156 @@ __device__ __forceinline__ void primary_ray(const Params& q, int x, int y,
   st.ox = q.cpx; st.oy = q.cpy; st.oz = q.cpz;
   st.dx = vx / nrm; st.dy = vy / nrm; st.dz = vz / nrm;
   st.atr = 1.0f; st.atg = 1.0f; st.atb = 1.0f;
-  background(yi, H, bg);
+  f_bg = yi / (float)H;
+}
+
+// The shadow ray of a hit at t along st's ray with normal n: from p + n *
+// shadow_eps toward the light, normalised with eps 1e-30; dist receives
+// the light's distance from p = o + t * d.
+__device__ __forceinline__ Ray shadow_ray(const float* par, const Shade& sh,
+                                          const State& st, float t, float nx,
+                                          float ny, float nz, float& dist) {
+  Light lt = load_light(par);
+  float px = st.ox + t * st.dx;
+  float py = st.oy + t * st.dy;
+  float pz = st.oz + t * st.dz;
+  float ldx = lt.x - px;
+  float ldy = lt.y - py;
+  float ldz = lt.z - pz;
+  dist = sqrtf(ldx * ldx + ldy * ldy + ldz * ldz);
+  float inv = 1.0f / jmax(dist, 1e-30f);
+  return make_ray(px + nx * sh.shadow_eps, py + ny * sh.shadow_eps,
+                  pz + nz * sh.shadow_eps, ldx * inv, ldy * inv, ldz * inv);
+}
+
+// One hit's shading (the bounce loop of _wholeframe_kernel after its
+// walks): the material gather attr_tab[id], Phong with 1/d attenuation and
+// x0.3 shadows added to rgb from the attenuation st.at*, then the
+// reflection from p + n * reflect_eps into st (with Fresnel, the new
+// attenuation and the reference's unattenuated extra term). Returns false
+// where the ray ends (ks <= 0); st then keeps its ray.
+__device__ __forceinline__ bool shade_hit(const float* tab, const float* par,
+                                          const Shade& sh, float id, float t,
+                                          float nx, float ny, float nz,
+                                          bool in_shadow, State& st,
+                                          float* rgb) {
+  Light lt = load_light(par);
+  float px = st.ox + t * st.dx;
+  float py = st.oy + t * st.dy;
+  float pz = st.oz + t * st.dz;
+  float ldx = lt.x - px;
+  float ldy = lt.y - py;
+  float ldz = lt.z - pz;
+  const float* mat = tab + (int)id * ATTR_W;
+  float mcr = ld(mat + 3), mcg = ld(mat + 4), mcb = ld(mat + 5);
+  float ka = ld(mat + 6), kd = ld(mat + 7), ks = ld(mat + 8);
+  float kf = ld(mat + 9), shin = ld(mat + 10);
+
+  float dist_p = sqrtf(jmax(ldx * ldx + ldy * ldy + ldz * ldz, 1e-30f));
+  float lc_r = lt.r / dist_p;
+  float lc_g = lt.g / dist_p;
+  float lc_b = lt.b / dist_p;
+  float ldnx = ldx / dist_p;
+  float ldny = ldy / dist_p;
+  float ldnz = ldz / dist_p;
+  float diff = jmax(nx * ldnx + ny * ldny + nz * ldnz, 0.0f);
+  float dotln = nx * ldnx + ny * ldny + nz * ldnz;
+  float rdx = -ldnx + 2.0f * dotln * nx;
+  float rdy = -ldny + 2.0f * dotln * ny;
+  float rdz = -ldnz + 2.0f * dotln * nz;
+  float spec_cos = jmax(st.dx * rdx + st.dy * rdy + st.dz * rdz, 0.0f);
+  float spec = powf(spec_cos, shin);
+  float specc = diff > 0.0f ? ks * spec : 0.0f;
+  float col_r = (ka * lc_r + (kd * diff) * lc_r + specc * lc_r) * mcr;
+  float col_g = (ka * lc_g + (kd * diff) * lc_g + specc * lc_g) * mcg;
+  float col_b = (ka * lc_b + (kd * diff) * lc_b + specc * lc_b) * mcb;
+  if (in_shadow) {
+    col_r = col_r * SHADOW_FACTOR;
+    col_g = col_g * SHADOW_FACTOR;
+    col_b = col_b * SHADOW_FACTOR;
+  }
+  rgb[0] = rgb[0] + st.atr * col_r;
+  rgb[1] = rgb[1] + st.atg * col_g;
+  rgb[2] = rgb[2] + st.atb * col_b;
+
+  if (!(ks > 0.0f)) return false;   // no reflection: the ray ends
+  float dotdn = nx * st.dx + ny * st.dy + nz * st.dz;
+  float ndx = st.dx - 2.0f * dotdn * nx;
+  float ndy = st.dy - 2.0f * dotdn * ny;
+  float ndz = st.dz - 2.0f * dotdn * nz;
+  if (sh.use_fresnel) {
+    float cosr = jmax(-(ndx * nx + ndy * ny + ndz * nz), 0.0f);
+    float x1 = 1.0f - cosr;
+    float x2 = x1 * x1;
+    float x5 = x1 * (x2 * x2);   // lax.integer_pow(x, 5)
+    float f = jmin(jmax(x5, 0.0f), 0.8f);
+    float w = kf * f;
+    float natr = st.atr * (mcr + (1.0f - mcr) * w);
+    float natg = st.atg * (mcg + (1.0f - mcg) * w);
+    float natb = st.atb * (mcb + (1.0f - mcb) * w);
+    // the extra term is NOT attenuated (reference double-count)
+    rgb[0] = rgb[0] + (1.0f - w) * mcr * col_r;
+    rgb[1] = rgb[1] + (1.0f - w) * mcg * col_g;
+    rgb[2] = rgb[2] + (1.0f - w) * mcb * col_b;
+    st.atr = natr; st.atg = natg; st.atb = natb;
+  } else {
+    st.atr = st.atr * ks; st.atg = st.atg * ks; st.atb = st.atb * ks;
+  }
+  st.ox = px + nx * sh.reflect_eps;
+  st.oy = py + ny * sh.reflect_eps;
+  st.oz = pz + nz * sh.reflect_eps;
+  st.dx = ndx; st.dy = ndy; st.dz = ndz;
+  return true;
+}
+
+__device__ __forceinline__ void park(State& st) {
+  st.ox = PARK_ORIGIN; st.oy = PARK_ORIGIN; st.oz = PARK_ORIGIN;
+  st.dx = PARK_DIR; st.dy = PARK_DIR; st.dz = PARK_DIR;
 }
 
 // One ray's Whitted trace over sh.bounces bounces (the bounce loop of
-// _wholeframe_kernel), shared by the raygen, emit and consume modes: per
-// bounce a closest walk with normals, a shadow walk with t_init = light
-// distance, the material gather attr_tab[rid], Phong with 1/d attenuation
-// and x0.3 shadows, and the reflection. rgb receives the colour added
-// from the entry attenuation st.at*. A ray parked on entry (ox >= 1e30) is
-// dead and adds nothing. On return st is the continuation state: the
-// reflected ray while the ray lives; once it ends (a miss, or ks <= 0) the
-// parked ray, with the attenuation frozen at its last value.
-template <int TRI>
-__device__ void trace_ray(const Tables& s, const float* tab, const Params& q,
-                          const Shade& sh, const float* bg, State& st,
-                          Counts& c, float* rgb) {
-  float accr = 0.0f, accg = 0.0f, accb = 0.0f;
-  float ox = st.ox, oy = st.oy, oz = st.oz;
-  float dx = st.dx, dy = st.dy, dz = st.dz;
-  float atr = st.atr, atg = st.atg, atb = st.atb;
-  bool alive = ox < 1e30f;
+// _wholeframe_kernel), per thread: per bounce a closest walk with normals
+// (tests in c), a shadow walk toward the light (tests in cs), then
+// shade_hit. rgb receives the colour added from the entry attenuation
+// st.at*; a miss adds the background (of fraction f_bg) and ends the ray.
+// A ray parked on
+// entry (ox >= 1e30) is dead and adds nothing. On return st is the
+// continuation state: the reflected ray while the ray lives; once it ends
+// the parked ray, with the attenuation frozen at its last value. The
+// shadow walk is occluded (ANY_HIT) or closest_walk with t_init = dist,
+// in_shadow = t < dist: the same answer, since both walks agree up to the
+// first inner hit below dist, which both find. wholeframe_kernel runs
+// warp_trace; this is its per-lane reference in tools/host_check.py.
+template <int TRI, bool ANY_HIT = true>
+__device__ void trace_ray(const Tables& s, const float* tab, const float* par,
+                          const Shade& sh, float f_bg, State& st, Counts& c,
+                          Counts& cs, float* rgb) {
+  rgb[0] = 0.0f; rgb[1] = 0.0f; rgb[2] = 0.0f;
+  bool alive = st.ox < 1e30f;
   for (int b = 0; b < sh.bounces && alive; ++b) {
-    Ray ray = make_ray(ox, oy, oz, dx, dy, dz);
+    Ray ray = make_ray(st.ox, st.oy, st.oz, st.dx, st.dy, st.dz);
     Hit h = closest_walk<TRI, true>(s, G_RID, T_RID, ray, INF, c);
     if (!(h.t < INF)) {   // miss: background, and the ray ends
-      accr = accr + atr * bg[0];
-      accg = accg + atg * bg[1];
-      accb = accb + atb * bg[2];
+      float bg[3];
+      background(f_bg, bg);
+      rgb[0] = rgb[0] + st.atr * bg[0];
+      rgb[1] = rgb[1] + st.atg * bg[1];
+      rgb[2] = rgb[2] + st.atb * bg[2];
       alive = false;
       break;
     }
-    float px = ox + h.t * dx;
-    float py = oy + h.t * dy;
-    float pz = oz + h.t * dz;
-    float ldx = q.lx - px;
-    float ldy = q.ly - py;
-    float ldz = q.lz - pz;
-    float dist = sqrtf(ldx * ldx + ldy * ldy + ldz * ldz);
     bool in_shadow = false;
     if (sh.enable_shadows) {
-      float inv = 1.0f / jmax(dist, 1e-30f);
-      Ray sray = make_ray(px + h.nx * sh.shadow_eps, py + h.ny * sh.shadow_eps,
-                          pz + h.nz * sh.shadow_eps, ldx * inv, ldy * inv,
-                          ldz * inv);
-      Hit sh_hit = closest_walk<TRI, false>(s, G_RID, T_RID, sray, dist, c);
-      in_shadow = sh_hit.t < dist;
+      float dist;
+      Ray sray = shadow_ray(par, sh, st, h.t, h.nx, h.ny, h.nz, dist);
+      in_shadow = ANY_HIT ? occluded<TRI>(s, sray, dist, cs)
+                          : closest_walk<TRI, false>(s, G_RID, T_RID, sray,
+                                                     dist, cs).t < dist;
     }
-
-    const float* mat = tab + (int)h.id * ATTR_W;
-    float mcr = ld(mat + 3), mcg = ld(mat + 4), mcb = ld(mat + 5);
-    float ka = ld(mat + 6), kd = ld(mat + 7), ks = ld(mat + 8);
-    float kf = ld(mat + 9), shin = ld(mat + 10);
-
-    float dist_p = sqrtf(jmax(ldx * ldx + ldy * ldy + ldz * ldz, 1e-30f));
-    float lc_r = q.lcr / dist_p;
-    float lc_g = q.lcg / dist_p;
-    float lc_b = q.lcb / dist_p;
-    float ldnx = ldx / dist_p;
-    float ldny = ldy / dist_p;
-    float ldnz = ldz / dist_p;
-    float diff = jmax(h.nx * ldnx + h.ny * ldny + h.nz * ldnz, 0.0f);
-    float dotln = h.nx * ldnx + h.ny * ldny + h.nz * ldnz;
-    float rdx = -ldnx + 2.0f * dotln * h.nx;
-    float rdy = -ldny + 2.0f * dotln * h.ny;
-    float rdz = -ldnz + 2.0f * dotln * h.nz;
-    float spec_cos = jmax(dx * rdx + dy * rdy + dz * rdz, 0.0f);
-    float spec = powf(spec_cos, shin);
-    float specc = diff > 0.0f ? ks * spec : 0.0f;
-    float col_r = (ka * lc_r + (kd * diff) * lc_r + specc * lc_r) * mcr;
-    float col_g = (ka * lc_g + (kd * diff) * lc_g + specc * lc_g) * mcg;
-    float col_b = (ka * lc_b + (kd * diff) * lc_b + specc * lc_b) * mcb;
-    if (in_shadow) {
-      col_r = col_r * SHADOW_FACTOR;
-      col_g = col_g * SHADOW_FACTOR;
-      col_b = col_b * SHADOW_FACTOR;
-    }
-    accr = accr + atr * col_r;
-    accg = accg + atg * col_g;
-    accb = accb + atb * col_b;
-
-    if (!(ks > 0.0f)) {   // no reflection: the ray ends
-      alive = false;
-      break;
-    }
-    float dotdn = h.nx * dx + h.ny * dy + h.nz * dz;
-    float ndx = dx - 2.0f * dotdn * h.nx;
-    float ndy = dy - 2.0f * dotdn * h.ny;
-    float ndz = dz - 2.0f * dotdn * h.nz;
-    if (sh.use_fresnel) {
-      float cosr = jmax(-(ndx * h.nx + ndy * h.ny + ndz * h.nz), 0.0f);
-      float x1 = 1.0f - cosr;
-      float x2 = x1 * x1;
-      float x5 = x1 * (x2 * x2);   // lax.integer_pow(x, 5)
-      float f = jmin(jmax(x5, 0.0f), 0.8f);
-      float w = kf * f;
-      float natr = atr * (mcr + (1.0f - mcr) * w);
-      float natg = atg * (mcg + (1.0f - mcg) * w);
-      float natb = atb * (mcb + (1.0f - mcb) * w);
-      // the extra term is NOT attenuated (reference double-count)
-      accr = accr + (1.0f - w) * mcr * col_r;
-      accg = accg + (1.0f - w) * mcg * col_g;
-      accb = accb + (1.0f - w) * mcb * col_b;
-      atr = natr; atg = natg; atb = natb;
-    } else {
-      atr = atr * ks; atg = atg * ks; atb = atb * ks;
-    }
-    ox = px + h.nx * sh.reflect_eps;
-    oy = py + h.ny * sh.reflect_eps;
-    oz = pz + h.nz * sh.reflect_eps;
-    dx = ndx; dy = ndy; dz = ndz;
+    alive = shade_hit(tab, par, sh, h.id, h.t, h.nx, h.ny, h.nz, in_shadow,
+                      st, rgb);
   }
-  if (!alive && sh.bounces > 0) {   // an ended ray leaves the parked ray
-    ox = PARK_ORIGIN; oy = PARK_ORIGIN; oz = PARK_ORIGIN;
-    dx = PARK_DIR; dy = PARK_DIR; dz = PARK_DIR;
-  }
-  st.ox = ox; st.oy = oy; st.oz = oz;
-  st.dx = dx; st.dy = dy; st.dz = dz;
-  st.atr = atr; st.atg = atg; st.atb = atb;
-  rgb[0] = accr;
-  rgb[1] = accg;
-  rgb[2] = accb;
+  if (!alive && sh.bounces > 0) park(st);   // an ended ray: the parked ray
 }
 
 // _fused_kernel for one ray: the closest hit with normals, then, in the
@@ -651,7 +693,8 @@ struct Tree {
   int m;
 };
 
-// _packet_kernel / _occlusion_kernel for one ray: the skip-pointer walk,
+// _packet_kernel / _occlusion_kernel for one ray, per thread (the per-lane
+// reference of warp_walk in tools/host_check.py): the skip-pointer walk,
 // entering a node when its box is hit and, with CULL, when the node is
 // not cullable or its entry tmin <= the best t (OCC: <= limit). A leaf's
 // rows are tested in order with the strict t < t_best update, so the
@@ -741,14 +784,15 @@ constexpr int CHUNK_FLOATS = CHUNK_ROWS * ROW_W;
 constexpr int ROW_ILP = 4;
 
 // One lane of the warp walk: its ray, counts, best t and its row, its
-// resume index and its probe at the current node.
+// resume index and its probe at the current node. In occlusion mode t is
+// the lane's limit, and occ is set once an inner hit lies below it.
 struct Lane {
   Ray r;
   Counts c;
   float t;
   int row;
   int resume;
-  bool probe;
+  bool probe, occ;
 };
 
 // Node steps and row steps of one warp (each counted once per warp).
@@ -801,12 +845,15 @@ __device__ __forceinline__ void staged_chunks(const float* src, int n,
 // reached it, and resumes at the node's skip pointer where its probe
 // fails), one vote a node. A lane probes where the node's slab is hit and
 // cull(a, box, tmin) holds (box: the node's first NB floats); a leaf that
-// some lane probes goes to leaf(st, cnt) for its rows st .., which
-// returns false to end the walk. A lane of resume index m walks not. LaneT
-// has r, c, resume and probe; T has nodes, leaf_start, leaf_count, skip
-// and m. The loop's control flow depends only on ptr, the tables and the
-// votes, so every vote is reached by all 32 threads.
-template <class W, int NB, class T, class LaneT, class Cull, class Leaf>
+// some lane probes goes to leaf(st, cnt) for its rows st .., which returns
+// the rows the warp stepped through. A lane of resume index m walks not;
+// ANY (any hit): a lane that is done sets resume = m, and the walk ends
+// after a leaf that leaves no lane. LaneT has r, c, resume and probe; T
+// has nodes, leaf_start, leaf_count, skip and m. The loop's control flow
+// depends only on ptr, the tables and the votes, so every vote is reached
+// by all 32 threads.
+template <class W, int NB, bool ANY, class T, class LaneT, class Cull,
+          class Leaf>
 __device__ __forceinline__ void lockstep_walk(const T& s, LaneT* ln,
                                               WarpCounts& wc, Cull cull,
                                               Leaf leaf) {
@@ -838,30 +885,68 @@ __device__ __forceinline__ void lockstep_walk(const T& s, LaneT* ln,
     } else if (cnt == 0) {
       ptr += 1;
     } else {
-      bool more = leaf(ldi(s.leaf_start + ptr), cnt);
+      wc.row += leaf(ldi(s.leaf_start + ptr), cnt);
       ptr = nxt;
-      if (!more) return;
+      if (ANY) {   // false once every lane is done
+        for (int l = 0; l < W::N; ++l) vote[l] = ln[l].resume < s.m;
+        if (!W::any(vote)) return;
+      }
     }
   }
 }
 
+// U consecutive rows, the group a lane tests before its updates.
+template <int U>
+struct RowGroup {
+  static constexpr int n = U;
+};
+
+// The probing lanes of one warp test a leaf's cnt rows of width floats at
+// src, staged chunk by chunk (staged_chunks: chunk rows a chunk into buf,
+// 2 * chunk * width floats, 16-byte aligned): rows(RowGroup<U>(), p, j)
+// tests the U rows at p, rows j .. of the leaf, ROW_ILP at a time, then
+// one by one. ANY (any hit): the warp stops reading the leaf once no lane
+// probes. Returns the rows the warp stepped through.
+template <class W, bool ANY, class LaneT, class Rows>
+__device__ __forceinline__ unsigned lockstep_leaf(const float* src, int cnt,
+                                                  int chunk, int width,
+                                                  LaneT* ln, float* buf,
+                                                  Rows rows) {
+  unsigned stepped = 0u;
+  staged_chunks<W>(src, cnt, chunk, width, buf,
+                   [&](const float* cur, int j0, int nr) {
+    int j = 0;
+    for (; j + ROW_ILP <= nr; j += ROW_ILP)
+      rows(RowGroup<ROW_ILP>(), cur + j * width, j0 + j);
+    for (; j < nr; ++j) rows(RowGroup<1>(), cur + j * width, j0 + j);
+    stepped += (unsigned)nr;
+    if (!ANY || j0 + nr == cnt) return true;
+    bool vote[W::N];   // no lane left: the next chunk is not read
+    for (int l = 0; l < W::N; ++l) vote[l] = ln[l].probe;
+    return W::any(vote);
+  });
+  return stepped;
+}
+
 __device__ __forceinline__ void lane_init(Lane& a, const Tree& s, bool live,
-                                          const Ray& r) {
+                                          const Ray& r, float limit = INF) {
   a.r = r;
   a.c.pre = 0u; a.c.node = 0u; a.c.tri = 0u;
-  a.t = INF;
+  a.t = limit;
   a.row = 0;
   bool zero = r.dx == 0.0f && r.dy == 0.0f && r.dz == 0.0f;
   a.resume = live && !zero ? 0 : s.m;
   a.probe = false;
+  a.occ = false;
 }
 
 // A triangle row's test without branches (row_intersect's triangle case:
 // the same arithmetic, with & for &&, so that the tests of several rows
 // can interleave). row_intersect keeps its own short-circuit form: taking
-// its triangles from tri_row slowed occlusion_kernel's per-thread walk on
-// scene 2 from 1.73-1.75 to 2.24-2.27 ms a call (NVIDIA H100 80GB HBM3 at
-// 700 W, tools/kernel_ab.py).
+// its triangles from tri_row slowed the per-thread walk that
+// occlusion_kernel ran before it walked in lockstep, on scene 2 from
+// 1.73-1.75 to 2.24-2.27 ms a call (NVIDIA H100 80GB HBM3 at 700 W,
+// tools/kernel_ab.py).
 template <bool MT, class L>
 __device__ __forceinline__ bool tri_row(const float* p, const Ray& r,
                                         float& t) {
@@ -879,9 +964,13 @@ __device__ __forceinline__ bool tri_row(const float* p, const Ray& r,
 // rows are triangles (a warp-uniform test), they take tri_row, without
 // row_intersect's type branches between them (scene 2: 0.62-0.65 ms
 // against 0.71-0.74 ms with row_intersect alone, tools/kernel_ab.py).
-template <class W, bool MT, int U>
-__device__ __forceinline__ void warp_rows(const float* p, int row0,
-                                          Lane* ln) {
+// OCC (any hit): a lane stops at its first row with an inner hit below its
+// limit t: it sets occ, drops its probe and leaves the walk (resume = m),
+// and counts the rows up to that one, as packet_walk<MT, CULL, true>
+// returns there.
+template <class W, bool MT, bool OCC, int U>
+__device__ __forceinline__ void warp_rows(const float* p, int row0, Lane* ln,
+                                          int m) {
   bool tris = true;
   for (int u = 0; u < U; ++u)
     tris = tris && (int)p[u * ROW_W] == TRIANGLE;
@@ -890,13 +979,29 @@ __device__ __forceinline__ void warp_rows(const float* p, int row0,
     if (!a.probe) continue;
     float t[U];
     bool inner[U];
+    Counts tested = {0u, 0u, 0u};   // OCC: counted below, up to the hit
     if (tris) {
-      a.c.tri += U;
+      if (!OCC) a.c.tri += U;
       for (int u = 0; u < U; ++u)
         inner[u] = tri_row<MT, Plain>(p + u * ROW_W, a.r, t[u]);
     } else {
       for (int u = 0; u < U; ++u)
-        inner[u] = row_intersect<MT, Plain>(p + u * ROW_W, a.r, t[u], a.c);
+        inner[u] = row_intersect<MT, Plain>(p + u * ROW_W, a.r, t[u],
+                                            OCC ? tested : a.c);
+    }
+    if (OCC) {
+      int u = 0;
+      while (u < U && !(inner[u] && t[u] < a.t)) ++u;
+      for (int k = 0; k < U && k <= u; ++k) {
+        if ((int)p[k * ROW_W] == TRIANGLE) a.c.tri += 1;
+        else a.c.pre += 1;
+      }
+      if (u < U) {
+        a.occ = true;
+        a.probe = false;
+        a.resume = m;
+      }
+      continue;
     }
     for (int u = 0; u < U; ++u) {
       if (inner[u] && t[u] < a.t) {
@@ -907,37 +1012,29 @@ __device__ __forceinline__ void warp_rows(const float* p, int row0,
   }
 }
 
-// The probing lanes test the cnt rows at src (local rows st ..), staged
-// chunk by chunk into buf (2 * CHUNK_FLOATS floats, 16-byte aligned).
-template <class W, bool MT>
-__device__ __forceinline__ void warp_leaf(const float* src, int st, int cnt,
-                                          Lane* ln, float* buf) {
-  staged_chunks<W>(src, cnt, CHUNK_ROWS, ROW_W, buf,
-                   [&](const float* cur, int j0, int nr) {
-    int j = 0;
-    for (; j + ROW_ILP <= nr; j += ROW_ILP)
-      warp_rows<W, MT, ROW_ILP>(cur + j * ROW_W, st + j0 + j, ln);
-    for (; j < nr; ++j) warp_rows<W, MT, 1>(cur + j * ROW_W, st + j0 + j, ln);
-    return true;
-  });
-}
-
 // The closest hit of the W::N lanes ln (of one warp): each lane's t (INF
 // on a miss) and row (0 on a miss), as packet_walk<MT, CULL, false> gives
 // them. With CULL a lane probes a node that is not cullable (column 6 is
-// 0) or that it enters at tmin <= its t. buf: this warp's staging buffer.
-template <class W, bool MT, bool CULL>
+// 0) or that it enters at tmin <= its t. OCC: whether each lane has an
+// inner hit below its limit (lane_init's limit, held in t), as
+// packet_walk<MT, CULL, true> answers, with the cull against the limit;
+// the warp leaves the tree once no lane is left. A leaf's rows are staged
+// CHUNK_ROWS at a time. buf: this warp's staging buffer (2 * CHUNK_FLOATS
+// floats, 16-byte aligned).
+template <class W, bool MT, bool CULL, bool OCC = false>
 __device__ __forceinline__ void warp_walk(const Tree& s, Lane* ln,
                                           float* buf, WarpCounts& wc) {
-  lockstep_walk<W, 7>(
+  lockstep_walk<W, 7, OCC>(
       s, ln, wc,
       [](const Lane& a, const float* box, float tmin) {
         return !CULL || box[6] == 0.0f || tmin <= a.t;
       },
       [&](int st, int cnt) {
-        warp_leaf<W, MT>(s.rows + (long long)st * ROW_W, st, cnt, ln, buf);
-        wc.row += cnt;
-        return true;
+        return lockstep_leaf<W, OCC>(
+            s.rows + (long long)st * ROW_W, cnt, CHUNK_ROWS, ROW_W, ln, buf,
+            [&](auto g, const float* p, int j) {
+              warp_rows<W, MT, OCC, decltype(g)::n>(p, st + j, ln, s.m);
+            });
       });
 }
 
@@ -1167,20 +1264,25 @@ __device__ __forceinline__ void brute_walk(const Runs& s, BruteLane* ln,
 // warp leaves the tree, or the rest of a leaf, once no lane is left. By
 // warp_walk's argument each lane evaluates the pre rows, nodes and
 // triangles of its per-thread walk in the same order with the same t at
-// each cull test: t, the id and the per-lane counts are closest_walk's
-// (occluded's). A parked ray (ox >= 1e30, or NaN) neither tests nor walks,
-// as closest_walk returns at once for it.
+// each cull test: t, the winning row and the per-lane counts are
+// closest_walk's (occluded's). A parked ray (ox >= 1e30, or NaN) neither
+// tests nor walks, as closest_walk returns at once for it. Closest mode
+// keeps a reference to the winning row (a pre row or a triangle row, as
+// closest_walk<..., MAT> keeps its material pointer): the caller reads
+// the id column and the normal once, after the walk (split_id,
+// split_normal).
 constexpr int SPLIT_CHUNK = 32;
 constexpr int SPLIT_CHUNK_FLOATS = SPLIT_CHUNK * TRI_W;
 constexpr int PRE_ILP = 4;
 
-// One lane of the split walk. Closest mode: t (INF on a miss) and id (-1);
-// occlusion mode: limit, and occ once an occluder is found.
+// One lane of the split walk. Closest mode: t (INF on a miss) and ref, the
+// winning row: i < n_other for pre row i, n_other + k for triangle row k,
+// -1 on a miss; occlusion mode: limit, and occ once an occluder is found.
 struct SplitLane {
   Ray r;
   Counts c;
-  float t, id, limit;
-  int resume;
+  float t, limit;
+  int ref, resume;
   bool walks, probe, occ;
 };
 
@@ -1190,7 +1292,7 @@ __device__ __forceinline__ void split_lane_init(SplitLane& a, const Tables& s,
   a.r = r;
   a.c.pre = 0u; a.c.node = 0u; a.c.tri = 0u;
   a.t = INF;
-  a.id = -1.0f;
+  a.ref = -1;
   a.limit = limit;
   a.walks = live && r.ox < 1e30f;
   a.resume = a.walks ? 0 : s.m;
@@ -1284,14 +1386,15 @@ __device__ __forceinline__ void split_pre(const Tables& s, SplitLane& a) {
   a.c.pre += s.n_other;
   if (best < a.t) {
     a.t = best;
-    a.id = ld(s.pre + bi * PRE_W + G_GID);
+    a.ref = bi;
   }
 }
 
-// The probing lanes test the U staged triangle rows at p.
+// The probing lanes test the U staged triangle rows at p; ref0: the
+// reference of the first (n_other + its triangle row).
 template <class W, int TRI, bool OCC, int U>
-__device__ __forceinline__ void split_rows(const float* p, SplitLane* ln,
-                                           int m) {
+__device__ __forceinline__ void split_rows(const float* p, int ref0,
+                                           SplitLane* ln, int m) {
   for (int l = 0; l < W::N; ++l) {
     SplitLane& a = ln[l];
     if (!a.probe) continue;
@@ -1313,56 +1416,235 @@ __device__ __forceinline__ void split_rows(const float* p, SplitLane* ln,
       for (int u = 0; u < U; ++u) {
         if (inner[u] && t[u] < a.t) {
           a.t = t[u];
-          a.id = p[u * TRI_W + T_GID];
+          a.ref = ref0 + u;
         }
       }
     }
   }
 }
 
-// The probing lanes test the cnt triangle rows at src, staged chunk by
-// chunk into buf (2 * SPLIT_CHUNK_FLOATS floats, 16-byte aligned). Returns
-// the rows the warp stepped through.
-template <class W, int TRI, bool OCC>
-__device__ __forceinline__ unsigned split_leaf(const float* src, int cnt,
-                                               SplitLane* ln, float* buf,
-                                               int m) {
-  unsigned stepped = 0u;
-  staged_chunks<W>(src, cnt, SPLIT_CHUNK, TRI_W, buf,
-                   [&](const float* cur, int j0, int nr) {
-    int j = 0;
-    for (; j + ROW_ILP <= nr; j += ROW_ILP)
-      split_rows<W, TRI, OCC, ROW_ILP>(cur + j * TRI_W, ln, m);
-    for (; j < nr; ++j) split_rows<W, TRI, OCC, 1>(cur + j * TRI_W, ln, m);
-    stepped += (unsigned)nr;
-    if (!OCC || j0 + nr == cnt) return true;
-    bool vote[W::N];   // no lane left: the next chunk is not read
-    for (int l = 0; l < W::N; ++l) vote[l] = ln[l].probe;
-    return W::any(vote);
-  });
-  return stepped;
-}
-
 // The pre-pass and the tree walk of the W::N lanes ln (of one warp). buf:
-// this warp's staging buffer.
+// this warp's staging buffer (2 * SPLIT_CHUNK_FLOATS floats, 16-byte
+// aligned).
 template <class W, int TRI, bool OCC>
 __device__ __forceinline__ void split_walk(const Tables& s, SplitLane* ln,
                                            float* buf, WarpCounts& wc) {
   for (int l = 0; l < W::N; ++l)
     if (ln[l].walks) split_pre<OCC>(s, ln[l]);
-  lockstep_walk<W, 6>(
+  lockstep_walk<W, 6, OCC>(
       s, ln, wc,
       [](const SplitLane& a, const float*, float tmin) {
         return tmin <= (OCC ? a.limit : a.t);
       },
       [&](int st, int cnt) {
-        wc.row += split_leaf<W, TRI, OCC>(s.tri + (long long)st * TRI_W, cnt,
-                                          ln, buf, s.m);
-        if (!OCC) return true;
-        bool vote[W::N];   // false once every lane is occluded or done
-        for (int l = 0; l < W::N; ++l) vote[l] = ln[l].resume < s.m;
-        return W::any(vote);
+        return lockstep_leaf<W, OCC>(
+            s.tri + (long long)st * TRI_W, cnt, SPLIT_CHUNK, TRI_W, ln, buf,
+            [&](auto g, const float* p, int j) {
+              split_rows<W, TRI, OCC, decltype(g)::n>(p, s.n_other + st + j,
+                                                      ln, s.m);
+            });
       });
+}
+
+// Column pre_col of the winning pre row or tri_col of the winning
+// triangle row of a closest-mode split walk (G_GID/T_GID, or the resolve
+// id G_RID/T_RID); -1 on a miss.
+__device__ __forceinline__ float split_id(const Tables& s, const SplitLane& a,
+                                          int pre_col, int tri_col) {
+  if (a.ref < 0) return -1.0f;
+  if (a.ref < s.n_other) return ld(s.pre + a.ref * PRE_W + pre_col);
+  return ld(s.tri + (long long)(a.ref - s.n_other) * TRI_W + tri_col);
+}
+
+// The normal of a closest-mode split walk's hit (a.ref >= 0), with
+// closest_walk's NORMALS arithmetic: a sphere's from the hit point
+// o + t * d of the lane's ray and the centre, a plane's, wall's or
+// triangle's from its row.
+__device__ __forceinline__ void split_normal(const Tables& s,
+                                             const SplitLane& a, float& nx,
+                                             float& ny, float& nz) {
+  if (a.ref < s.n_other) {
+    const float* p = s.pre + a.ref * PRE_W;
+    if (a.ref < s.n_sph) {
+      float px = a.r.ox + a.t * a.r.dx - ld(p + 1);
+      float py = a.r.oy + a.t * a.r.dy - ld(p + 2);
+      float pz = a.r.oz + a.t * a.r.dz - ld(p + 3);
+      float inv = 1.0f / sqrtf(px * px + py * py + pz * pz + 1e-30f);
+      nx = px * inv; ny = py * inv; nz = pz * inv;
+    } else {
+      nx = ld(p + 5); ny = ld(p + 6); nz = ld(p + 7);
+    }
+    return;
+  }
+  const float* p = s.tri + (long long)(a.ref - s.n_other) * TRI_W;
+  nx = ld(p + T_NX); ny = ld(p + T_NX + 1); nz = ld(p + T_NX + 2);
+}
+
+// ---- wholeframe_kernel's lockstep frame trace -------------------------
+//
+// trace_ray for the 32 pixels (or rays) of a warp. The bounce loop is
+// warp-uniform: the warp loops while some lane's ray lives (one vote a
+// bounce), and a lane whose ray has ended, or that has no pixel, stays in
+// the loop as a lane that never walks. Per bounce the closest hit is a
+// closest-mode split_walk over the lanes whose ray lives (each lane's
+// unrolled pre-pass, then the lockstep walk of the triangle tree with the
+// leaf rows staged per warp); its winning row gives the resolve id and
+// the normal. The shadow leg is an occlusion-mode split_walk with limit =
+// the light's distance, for the lanes with a hit (with enable_shadows):
+// trace_ray<TRI, true>'s occluded, so each lane's tests are closest_walk's
+// and occluded's, and its colour and continuation state are trace_ray's
+// bit for bit (shadow_ray and shade_hit are the same code). Raygen mode
+// gives a warp an 8x4 pixel patch of a TILE_W x TILE_H block tile; consume
+// mode 32 neighbours of the given (sorted) stream, where parked rays come
+// last, so a warp of parked rays leaves at its first vote.
+constexpr int TILE_W = 8, TILE_H = 16, BLOCK = TILE_W * TILE_H;
+
+// One lane of the frame trace: its ray's state, its pixel's background
+// fraction, its colour, whether its ray lives, and its tests.
+struct TraceLane {
+  State st;
+  float f_bg, rgb[3];
+  bool alive;
+  Counts c;
+};
+
+__device__ __forceinline__ void add_counts(Counts& a, const Counts& b) {
+  a.pre += b.pre; a.node += b.node; a.tri += b.tri;
+}
+
+// The entry of thread tid of block (bx, by) of wholeframe_kernel's grid:
+// in raygen mode pixel (bx * TILE_W + tid % TILE_W, by * TILE_H + tid /
+// TILE_W); in consume mode ray bx * BLOCK + tid of the n given (rays:
+// n_rows (6 or 9) rows of n floats, o, d and, with 9 rows, the entry
+// attenuation, else 1; ret: their image-order pixel indices y * W + x,
+// from which the background is re-derived). Returns the pixel's index y *
+// W + x or the ray's (n = W * H or the rays' count: an int), or -1 for a
+// thread past the frame or the rays: its lane starts dead and never walks.
+template <bool CONSUME>
+__device__ __forceinline__ int trace_entry(TraceLane& a, const Params& q,
+                                           const float* rays, int n_rows,
+                                           const int* ret, int n, int W,
+                                           int H, int bx, int by, int tid) {
+  State& st = a.st;
+  park(st);
+  st.atr = 1.0f; st.atg = 1.0f; st.atb = 1.0f;
+  a.f_bg = 0.0f;
+  int i = -1;
+  if (CONSUME) {
+    long long j = (long long)bx * BLOCK + tid;
+    if (j < n) {
+      i = (int)j;
+      st.ox = rays[i];
+      st.oy = rays[n + i];
+      st.oz = rays[2LL * n + i];
+      st.dx = rays[3LL * n + i];
+      st.dy = rays[4LL * n + i];
+      st.dz = rays[5LL * n + i];
+      if (n_rows == 9) {
+        st.atr = rays[6LL * n + i];
+        st.atg = rays[7LL * n + i];
+        st.atb = rays[8LL * n + i];
+      }
+      a.f_bg = ((float)(ret[i] / W) + q.y_off) / (float)H;
+    }
+  } else {
+    int x = bx * TILE_W + tid % TILE_W;
+    int y = by * TILE_H + tid / TILE_W;
+    if (x < W && y < H) {
+      i = y * W + x;
+      primary_ray(q, x, y, W, H, st, a.f_bg);
+    }
+  }
+  a.rgb[0] = 0.0f; a.rgb[1] = 0.0f; a.rgb[2] = 0.0f;
+  a.alive = i >= 0 && st.ox < 1e30f;
+  a.c.pre = 0u; a.c.node = 0u; a.c.tri = 0u;
+  return i;
+}
+
+// Store lane a's colour at out[3 i ..] and, with EMIT, its continuation
+// state in the 9 rows of n floats at state (o, d, atten).
+template <bool EMIT>
+__device__ __forceinline__ void trace_store(const TraceLane& a, int i, int n,
+                                            float* out, float* state) {
+  out[3LL * i] = a.rgb[0];
+  out[3LL * i + 1] = a.rgb[1];
+  out[3LL * i + 2] = a.rgb[2];
+  if (EMIT) {
+    const State& st = a.st;
+    const float v[9] = {st.ox, st.oy, st.oz, st.dx, st.dy, st.dz,
+                        st.atr, st.atg, st.atb};
+    for (int k = 0; k < 9; ++k) state[k * (long long)n + i] = v[k];
+  }
+}
+
+// The W::N lanes ln (of one warp) trace their rays over sh.bounces
+// bounces; on return each lane holds trace_ray's colour and continuation
+// state, and its closest walks' tests (trace_ray's c). cs: where lane l's
+// shadow-leg tests go (trace_ray's cs), cs[l]; null: into its c as well.
+// buf: this warp's staging buffer (2 * SPLIT_CHUNK_FLOATS floats, 16-byte
+// aligned).
+template <class W, int TRI>
+__device__ __forceinline__ void warp_trace(const Tables& s, const float* tab,
+                                           const float* par, const Shade& sh,
+                                           TraceLane* ln, Counts* cs,
+                                           float* buf, WarpCounts& wc) {
+  for (int b = 0; b < sh.bounces; ++b) {
+    bool vote[W::N];
+    for (int l = 0; l < W::N; ++l) vote[l] = ln[l].alive;
+    if (!W::any(vote)) break;
+    SplitLane h[W::N];
+    for (int l = 0; l < W::N; ++l) {
+      const State& st = ln[l].st;
+      split_lane_init(h[l], s, ln[l].alive,
+                      make_ray(st.ox, st.oy, st.oz, st.dx, st.dy, st.dz),
+                      INF);
+    }
+    split_walk<W, TRI, false>(s, h, buf, wc);
+    bool hit[W::N], in_shadow[W::N];
+    for (int l = 0; l < W::N; ++l) {
+      TraceLane& a = ln[l];
+      add_counts(a.c, h[l].c);
+      hit[l] = a.alive && h[l].t < INF;
+      in_shadow[l] = false;
+      if (a.alive && !hit[l]) {   // miss: background, and the ray ends
+        float bg[3];
+        background(a.f_bg, bg);
+        a.rgb[0] = a.rgb[0] + a.st.atr * bg[0];
+        a.rgb[1] = a.rgb[1] + a.st.atg * bg[1];
+        a.rgb[2] = a.rgb[2] + a.st.atb * bg[2];
+        a.alive = false;
+      }
+    }
+    if (sh.enable_shadows) {
+      SplitLane sl[W::N];
+      for (int l = 0; l < W::N; ++l) {
+        Ray sr = make_ray(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
+        float dist = 0.0f;
+        if (hit[l]) {
+          float nx, ny, nz;
+          split_normal(s, h[l], nx, ny, nz);
+          sr = shadow_ray(par, sh, ln[l].st, h[l].t, nx, ny, nz, dist);
+        }
+        split_lane_init(sl[l], s, hit[l], sr, dist);
+      }
+      split_walk<W, TRI, true>(s, sl, buf, wc);
+      for (int l = 0; l < W::N; ++l) {
+        add_counts(cs != nullptr ? cs[l] : ln[l].c, sl[l].c);
+        in_shadow[l] = sl[l].occ;
+      }
+    }
+    for (int l = 0; l < W::N; ++l) {
+      if (!hit[l]) continue;
+      float nx, ny, nz;
+      split_normal(s, h[l], nx, ny, nz);
+      ln[l].alive = shade_hit(tab, par, sh, split_id(s, h[l], G_RID, T_RID),
+                              h[l].t, nx, ny, nz, in_shadow[l], ln[l].st,
+                              ln[l].rgb);
+    }
+  }
+  if (sh.bounces > 0)   // an ended ray leaves the parked ray
+    for (int l = 0; l < W::N; ++l)
+      if (!ln[l].alive) park(ln[l].st);
 }
 
 }  // namespace rt

@@ -15,7 +15,8 @@ down the tree, descends where ANY lane probes, and in a leaf lets each
 lane test the shapes whose leaf box its own ray hits. packet_kernel walks
 a warp of 32 rays in lockstep too, but each lane enters only the nodes
 its own ray probes (a lane that does not probe waits for the warp at the
-node's skip pointer), and occlusion_kernel's threads walk alone. A lane's
+node's skip pointer); occlusion_kernel walks the same way, each lane
+leaving at its first hit below its limit. A lane's
 result is the same: child boxes nest inside their parents, and a shape
 contained in its leaf box has t >= the box's tmin, so a subtree culled for
 tmin > t_best holds no better hit. Nodes whose subtree holds a degenerate
@@ -85,8 +86,7 @@ def _launch(tree: Tree, o, d, max_t, use_mt, t_cull, stats):
     if max_t is not None:
         kernels.check_tensor("max_t", max_t, torch.float32, dev, (n,))
     if stats is not None:
-        kernels.check_tensor("stats", stats, torch.int64, dev,
-                             (3 if max_t is not None else 5,))
+        kernels.check_tensor("stats", stats, torch.int64, dev, (5,))
     m = tree.m
     for name in ("leaf_start", "leaf_count", "skip"):
         kernels.check_tensor(name, getattr(tree, name), torch.int32, dev,
@@ -138,8 +138,9 @@ def occlusion(tree: Tree, o: torch.Tensor, d: torch.Tensor,
               stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """True where ray o, d (R, 3) f32 has an inner hit at t < max_t (R,).
     On a CUDA tensor this launches ``occlusion_kernel``; on a CPU tensor
-    it runs ``occlusion_plain``. ``stats``, an int64 (3,) tensor on the
-    card, receives the rays' counts as for ``packet_hit``."""
+    it runs ``occlusion_plain``. ``stats``, an int64 (5,) tensor on the
+    card, receives the counts as for ``packet_hit`` (a lane's row tests
+    end at its first hit below max_t; the warps walk in lockstep too)."""
     if o.device.type == "cpu":
         return occlusion_plain(tree, o, d, max_t, use_mt, t_cull)
     if o.device.type != "cuda":

@@ -8,14 +8,17 @@
 
 - raygen: one thread per pixel generates its primary ray and background
   from the pixel index and the camera scalars, then runs every bounce
-  (closest walk with normals, shadow walk with t_init = light distance,
-  material gather by canonical id, Phong with 1/d attenuation and x0.3
-  shadows, reflection, optional Fresnel). A frame is one launch; the
-  result is (H, W, 3) f32 in image order.
+  (closest walk, the normal and canonical id of the winning row, an
+  any-hit shadow walk below the light distance, material gather by that
+  id, Phong with 1/d attenuation and x0.3 shadows, reflection, optional
+  Fresnel). The 32 pixels of a warp (an 8x4 patch) walk the tree in
+  lockstep, bounce by bounce. A frame is one launch; the result is (H,
+  W, 3) f32 in image order.
 - raygen + ``emit_state``: the same for ``bounces`` bounces (1 in the
   hybrid), and also the continuation state o, d, atten of every pixel; a
   ray that ended leaves the parked ray with its attenuation frozen.
-- consume (``rays``, ``ret``): one thread per given ray, o, d and
+- consume (``rays``, ``ret``): one thread per given ray (a warp: 32
+  neighbours of the stream), o, d and
   optionally the entry attenuation (else 1), with ``ret`` the ray's int32
   image-order pixel index y * W + x, from which the background is
   re-derived with the raygen arithmetic. A parked ray (ox >= 1e30) adds
@@ -245,8 +248,11 @@ def wholeframe(split: SplitScene, attr_tab: torch.Tensor, par: torch.Tensor,
     mode: ``rays`` (6 or 9, R) f32 rows o, d[, atten] and ``ret`` (R,)
     int32 image-order pixel indices; returns (R, 3). With ``emit_state``
     it returns (colours, state (9, R) f32 rows o, d, atten), R = W * H in
-    raygen mode, in image order. ``stats``, an int64 (3,) tensor on the
-    card, receives the counts of pre-pass, node and triangle tests."""
+    raygen mode, in image order. ``stats``, an int64 (5,) tensor on the
+    card, receives the counts of pre-pass, node and triangle tests (the
+    closest walks' and the shadow legs', summed over the rays), then of
+    the warps' node steps and row steps (the kernel traces a warp's 32
+    pixels or rays in lockstep)."""
     dev = par.device
     if dev.type == "cpu":
         return wholeframe_plain(split, attr_tab, par, cfg, bounces=bounces,
@@ -277,7 +283,7 @@ def wholeframe(split: SplitScene, attr_tab: torch.Tensor, par: torch.Tensor,
         kernels.check_tensor("ret", ret, torch.int32, dev, (n,))
         out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if stats is not None:
-        kernels.check_tensor("stats", stats, torch.int64, dev, (3,))
+        kernels.check_tensor("stats", stats, torch.int64, dev, (5,))
     state = torch.empty((N_STATE, n), dtype=torch.float32, device=dev) \
         if emit_state else None
     if n:

@@ -1,5 +1,5 @@
-"""The lockstep walks of packet_kernel, brute_kernel and
-closest_hit_kernel, compiled for the host.
+"""The lockstep walks of packet_kernel, occlusion_kernel, brute_kernel,
+closest_hit_kernel and wholeframe_kernel, compiled for the host.
 
 ``tools/host_check.py`` compiles the CUDA device code of
 ``raytracer_tpu_torch/csrc/raytrace.cuh`` with g++ under a host lane
@@ -13,6 +13,9 @@ zero direction, a count that is not a multiple of 32):
   row) in all four ``<MT, CULL>`` variants; its per-lane counts against
   those of the per-thread walk (``packet_walk``); its warp node and row
   steps against a count made here in numpy;
+- occlusion_kernel's ``warp_walk`` in occlusion mode against
+  ``packet.occlusion_plain`` and the per-thread ``packet_walk<MT, CULL,
+  true>`` (the answer and each lane's counts), in all four variants;
 - brute_kernel's ``brute_walk`` against ``brute.brute_plain`` (t and the
   row), gate and Moller-Trumbore on and off, with the run table staged
   whole and in chunks; its row tests against the rows whose leaf box each
@@ -20,7 +23,16 @@ zero direction, a count that is not a multiple of 32):
 - closest_hit_kernel's ``split_walk`` against ``closest_hit_plain`` (t
   and the gid, and occlusion) for the raw, Gram and MT triangle tests, and
   its per-lane counts against those of the per-thread walks
-  (``closest_walk``, ``occluded``).
+  (``closest_walk``, ``occluded``);
+- wholeframe_kernel's lockstep trace (``warp_trace``) against the
+  per-thread ``trace_ray`` over the kernel's grid at 37x23 (partial tiles
+  and warps), in raygen, raygen + emit and consume + emit mode (on the
+  re-packed, sorted state: parked rays last, a partial last warp; 6 and 9
+  rows): colours and state bit for bit, each lane's closest-walk tests
+  against ``closest_walk``'s and its shadow-leg tests against
+  ``occluded``'s, and colours and state also against ``trace_ray`` with
+  the closest-mode shadow leg; default, raw, MT + Fresnel and unshadowed
+  5-bounce configurations.
 Skipped only where g++ is absent.
 """
 
@@ -37,6 +49,7 @@ import torch
 
 from raytracer_tpu_torch.accel import build_bvh, linearize
 from raytracer_tpu_torch.accel.linearize import shape_leaf_boxes
+from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.core.camera import from_euler
 from raytracer_tpu_torch.geom import rowwise
 from raytracer_tpu_torch.render import brute, packet, split_scene
@@ -213,3 +226,35 @@ def test_split_walk_matches_closest_hit_plain(scene, hc, lib):
         _, cok = hc.host_closest(lib, split, o, d, tri_mode, limit)
         assert torch.equal(cow, cok)
     assert bool((tp < 1e30).any()) and bool(op.any())
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_warp_occlusion_matches_packet_walk(scene, hc, lib):
+    flat, lin, o, d = _scene(scene)
+    for use_mt, t_cull in VARIANTS:
+        tree = packet.make_tree(lin, flat, t_cull=t_cull)
+        tp, _ = packet.packet_plain(tree, o, d, use_mt, t_cull)
+        limit = hc.occlusion_limits(tp)
+        ow, sw, cw = hc.host_warp(lib, tree, o, d, use_mt, t_cull, limit,
+                                  lanes=True)
+        op = packet.occlusion_plain(tree, o, d, limit, use_mt, t_cull)
+        assert torch.equal(ow, op)
+        ok, ck = hc.host_packet(lib, tree, o, d, use_mt, t_cull, limit,
+                                lanes=True)
+        assert torch.equal(ok, op)
+        assert torch.equal(cw, ck)   # each lane's tests, up to its hit
+        assert 0 < sw[4] and sw[0] + sw[2] <= 32 * sw[4]
+        assert bool(op.any()) and not bool(op.all())
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_frame_trace_matches_trace_ray(scene, hc, lib):
+    split, tab, par = hc.frame_inputs(
+        "typed" if scene == "typed" else int(scene[-1]))
+    n = hc.FRAME_W * hc.FRAME_H
+    for name, kw in hc.FRAME_VARIANTS:
+        cfg = RenderConfig(width=hc.FRAME_W, height=hc.FRAME_H,
+                           **{"max_bounces": 3, **kw})
+        diffs, parked = hc.check_frame(lib, split, tab, par, cfg)
+        assert not any(diffs.values()), (name, diffs)
+        assert 0 < parked < n   # the consume stream has both kinds

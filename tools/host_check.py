@@ -100,9 +100,18 @@ struct HostWarp {
   static void wait_but_one() { land(1); }
 };
 
-template <bool MT, bool CULL>
-static void warp_all(const rt::Tree& s, const float* o, const float* d, int n,
-                     float* t_out, int* row_out, unsigned long long* stats) {
+static void put_counts(unsigned* counts, int i, const rt::Counts& c) {
+  if (!counts) return;
+  counts[3 * i] = c.pre; counts[3 * i + 1] = c.node; counts[3 * i + 2] = c.tri;
+}
+
+// packet_kernel's warp walk (max_t null) or occlusion_kernel's, 32 lanes a
+// call; counts: each ray's (non-triangle, node, triangle) tests, or null.
+template <bool MT, bool CULL, bool OCC>
+static void warp_all(const rt::Tree& s, const float* o, const float* d,
+                     const float* max_t, int n, float* t_out, int* row_out,
+                     unsigned char* occ, unsigned* counts,
+                     unsigned long long* stats) {
   alignas(16) static float buf[2 * rt::CHUNK_FLOATS];
   for (int w = 0; w < n; w += 32) {
     rt::Lane ln[32];
@@ -112,13 +121,18 @@ static void warp_all(const rt::Tree& s, const float* o, const float* d, int n,
       if (i < n)
         r = rt::make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
                          d[3 * i + 1], d[3 * i + 2]);
-      rt::lane_init(ln[l], s, i < n, r);
+      rt::lane_init(ln[l], s, i < n, r, OCC && i < n ? max_t[i] : rt::INF);
     }
     rt::WarpCounts wc = {0u, 0u};
-    rt::warp_walk<HostWarp, MT, CULL>(s, ln, buf, wc);
+    rt::warp_walk<HostWarp, MT, CULL, OCC>(s, ln, buf, wc);
     for (int l = 0; l < 32 && w + l < n; ++l) {
-      t_out[w + l] = ln[l].t;
-      row_out[w + l] = ln[l].row;
+      if (OCC) {
+        occ[w + l] = ln[l].occ;
+      } else {
+        t_out[w + l] = ln[l].t;
+        row_out[w + l] = ln[l].row;
+      }
+      put_counts(counts, w + l, ln[l].c);
       stats[0] += ln[l].c.pre; stats[1] += ln[l].c.node;
       stats[2] += ln[l].c.tri;
     }
@@ -129,7 +143,8 @@ static void warp_all(const rt::Tree& s, const float* o, const float* d, int n,
 template <bool MT, bool CULL>
 static void packet_all(const rt::Tree& s, const float* o, const float* d,
                        const float* max_t, int n, float* t_out, int* row_out,
-                       unsigned char* occ, unsigned long long* stats) {
+                       unsigned char* occ, unsigned* counts,
+                       unsigned long long* stats) {
   for (int i = 0; i < n; ++i) {
     rt::Ray r = rt::make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
                              d[3 * i + 1], d[3 * i + 2]);
@@ -143,6 +158,7 @@ static void packet_all(const rt::Tree& s, const float* o, const float* d,
       t_out[i] = t;
       row_out[i] = row;
     }
+    put_counts(counts, i, c);
     stats[0] += c.pre; stats[1] += c.node; stats[2] += c.tri;
   }
 }
@@ -226,7 +242,7 @@ static void split_all(const rt::Tables& s, const float* o, const float* d,
         occ[i] = ln[l].occ;
       } else {
         t_out[i] = ln[l].t;
-        id_out[i] = ln[l].id;
+        id_out[i] = rt::split_id(s, ln[l], rt::G_GID, rt::T_GID);
       }
       counts[3 * i] = ln[l].c.pre; counts[3 * i + 1] = ln[l].c.node;
       counts[3 * i + 2] = ln[l].c.tri;
@@ -253,7 +269,81 @@ static void attrs_all(const rt::Tables& s, const float* o, const float* d,
   }
 }
 
+// wholeframe_kernel's grid on the host: each warp of each block, its lanes
+// from trace_entry as the kernel takes them, then the lockstep trace
+// (how 0: warp_trace, 32 lanes a call) or, per lane, trace_ray with the
+// any-hit shadow leg (1) or the closest-mode one (2). counts: each
+// pixel's or ray's (pre, node, triangle) tests of its closest walks, then
+// of its shadow legs; steps: the warps' node and row steps.
+template <int TRI>
+static void frame_all(const rt::Tables& s, const float* tab,
+                      const float* par, const float* rays, int n_rows,
+                      const int* ret, int n, float* out, float* state, int W,
+                      int H, const rt::Shade& sh, int how, unsigned* counts,
+                      unsigned long long* steps) {
+  alignas(16) static float buf[2 * rt::SPLIT_CHUNK_FLOATS];
+  rt::Params q = rt::load_params(par);
+  bool consume = rays != nullptr;
+  int gx = consume ? (n + rt::BLOCK - 1) / rt::BLOCK
+                   : (W + rt::TILE_W - 1) / rt::TILE_W;
+  int gy = consume ? 1 : (H + rt::TILE_H - 1) / rt::TILE_H;
+  for (int by = 0; by < gy; ++by)
+    for (int bx = 0; bx < gx; ++bx)
+      for (int w = 0; w < rt::BLOCK / 32; ++w) {
+        rt::TraceLane ln[32];
+        rt::Counts cs[32] = {};
+        int idx[32];
+        for (int l = 0; l < 32; ++l)
+          idx[l] = consume
+              ? rt::trace_entry<true>(ln[l], q, rays, n_rows, ret, n, W, H,
+                                      bx, by, 32 * w + l)
+              : rt::trace_entry<false>(ln[l], q, rays, n_rows, ret, n, W, H,
+                                       bx, by, 32 * w + l);
+        if (how == 0) {
+          rt::WarpCounts wc = {0u, 0u};
+          rt::warp_trace<HostWarp, TRI>(s, tab, par, sh, ln, cs, buf, wc);
+          steps[0] += wc.node; steps[1] += wc.row;
+        } else {
+          for (int l = 0; l < 32; ++l) {
+            rt::TraceLane& a = ln[l];
+            if (how == 1)
+              rt::trace_ray<TRI, true>(s, tab, par, sh, a.f_bg, a.st, a.c,
+                                       cs[l], a.rgb);
+            else
+              rt::trace_ray<TRI, false>(s, tab, par, sh, a.f_bg, a.st, a.c,
+                                        cs[l], a.rgb);
+          }
+        }
+        for (int l = 0; l < 32; ++l) {
+          int i = idx[l];
+          if (i < 0) continue;
+          if (state) rt::trace_store<true>(ln[l], i, n, out, state);
+          else rt::trace_store<false>(ln[l], i, n, out, state);
+          put_counts(counts, 2 * i, ln[l].c);
+          put_counts(counts, 2 * i + 1, cs[l]);
+        }
+      }
+}
+
 extern "C" {
+void h_frame(const int* ls, const int* lc, const int* sk, const float* nodes,
+             const float* pre, const float* tri, int m, int n_other,
+             int n_sph, const float* tab, const float* par, const float* rays,
+             int n_rows, const int* ret, int n, float* out, float* state,
+             int W, int H, int bounces, float shadow_eps, float reflect_eps,
+             int use_fresnel, int enable_shadows, int tri_mode, int how,
+             unsigned* counts, unsigned long long* steps) {
+  rt::Tables s = {ls, lc, sk, nodes, pre, tri, m, n_other, n_sph};
+  rt::Shade sh = {bounces, shadow_eps, reflect_eps, use_fresnel != 0,
+                  enable_shadows != 0};
+#define H_FRAME(TRI)                                                        \
+  frame_all<TRI>(s, tab, par, rays, n_rows, ret, n, out, state, W, H, sh,   \
+                 how, counts, steps)
+  if (tri_mode == rt::TRI_RAW) H_FRAME(rt::TRI_RAW);
+  if (tri_mode == rt::TRI_GRAM) H_FRAME(rt::TRI_GRAM);
+  if (tri_mode == rt::TRI_MT) H_FRAME(rt::TRI_MT);
+#undef H_FRAME
+}
 void h_closest_attrs(const int* ls, const int* lc, const int* sk,
                      const float* nodes, const float* pre, const float* tri,
                      int m, int n_other, int n_sph, const float* o,
@@ -293,22 +383,33 @@ void h_split(const int* ls, const int* lc, const int* sk, const float* nodes,
 void h_packet(const int* ls, const int* lc, const int* sk, const float* nodes,
               const float* rows, int m, const float* o, const float* d,
               const float* max_t, int n, float* t_out, int* row_out,
-              unsigned char* occ, int mt, int cull, unsigned long long* st) {
+              unsigned char* occ, int mt, int cull, unsigned* counts,
+              unsigned long long* st) {
   rt::Tree s = {ls, lc, sk, nodes, rows, m};
-  if (mt && cull) packet_all<true, true>(s, o, d, max_t, n, t_out, row_out, occ, st);
-  if (mt && !cull) packet_all<true, false>(s, o, d, max_t, n, t_out, row_out, occ, st);
-  if (!mt && cull) packet_all<false, true>(s, o, d, max_t, n, t_out, row_out, occ, st);
-  if (!mt && !cull) packet_all<false, false>(s, o, d, max_t, n, t_out, row_out, occ, st);
+#define H_PACKET(MT, CULL) \
+  packet_all<MT, CULL>(s, o, d, max_t, n, t_out, row_out, occ, counts, st)
+  if (mt && cull) H_PACKET(true, true);
+  if (mt && !cull) H_PACKET(true, false);
+  if (!mt && cull) H_PACKET(false, true);
+  if (!mt && !cull) H_PACKET(false, false);
+#undef H_PACKET
 }
 void h_warp(const int* ls, const int* lc, const int* sk, const float* nodes,
-            const float* rows, int m, const float* o, const float* d, int n,
-            float* t_out, int* row_out, int mt, int cull,
+            const float* rows, int m, const float* o, const float* d,
+            const float* max_t, int n, float* t_out, int* row_out,
+            unsigned char* occ, int mt, int cull, unsigned* counts,
             unsigned long long* st) {
   rt::Tree s = {ls, lc, sk, nodes, rows, m};
-  if (mt && cull) warp_all<true, true>(s, o, d, n, t_out, row_out, st);
-  if (mt && !cull) warp_all<true, false>(s, o, d, n, t_out, row_out, st);
-  if (!mt && cull) warp_all<false, true>(s, o, d, n, t_out, row_out, st);
-  if (!mt && !cull) warp_all<false, false>(s, o, d, n, t_out, row_out, st);
+#define H_WARP(MT, CULL)                                                    \
+  if (max_t) warp_all<MT, CULL, true>(s, o, d, max_t, n, t_out, row_out,    \
+                                      occ, counts, st);                     \
+  else warp_all<MT, CULL, false>(s, o, d, max_t, n, t_out, row_out, occ,    \
+                                 counts, st)
+  if (mt && cull) { H_WARP(true, true); }
+  if (mt && !cull) { H_WARP(true, false); }
+  if (!mt && cull) { H_WARP(false, true); }
+  if (!mt && !cull) { H_WARP(false, false); }
+#undef H_WARP
 }
 void h_brute(const float* rows, const float* runs, int n_runs, int chunk,
              const int* cnt, const float* o, const float* d, int n,
@@ -339,33 +440,64 @@ def ptr(x):
     return None if x is None else ctypes.c_void_p(x.data_ptr())
 
 
-def host_packet(lib, tree, o, d, use_mt, t_cull, max_t=None):
-    """(t, row) or the occlusion mask of the host-compiled walk, and its
-    (non-triangle, node, triangle) test counts."""
+def _tree_walk(fn, tree, o, d, use_mt, t_cull, max_t, n_stats):
     n = o.shape[0]
     t = torch.empty(n)
     row = torch.empty(n, dtype=torch.int32)
     occ = torch.empty(n, dtype=torch.bool)
-    stats = torch.zeros(3, dtype=torch.int64)
-    lib.h_packet(ptr(tree.leaf_start), ptr(tree.leaf_count), ptr(tree.skip),
-                 ptr(tree.nodes), ptr(tree.rows), tree.m, ptr(o), ptr(d),
-                 ptr(max_t), n, ptr(t), ptr(row), ptr(occ), int(use_mt),
-                 int(t_cull), ptr(stats))
-    return (t, row) if max_t is None else occ, stats.tolist()
+    counts = torch.zeros(n, 3, dtype=torch.int32)
+    stats = torch.zeros(n_stats, dtype=torch.int64)
+    fn(ptr(tree.leaf_start), ptr(tree.leaf_count), ptr(tree.skip),
+       ptr(tree.nodes), ptr(tree.rows), tree.m, ptr(o), ptr(d), ptr(max_t),
+       n, ptr(t), ptr(row), ptr(occ), int(use_mt), int(t_cull), ptr(counts),
+       ptr(stats))
+    return (t, row) if max_t is None else occ, counts, stats.tolist()
 
 
-def host_warp(lib, tree, o, d, use_mt, t_cull):
-    """(t, row) of packet_kernel's warp walk, run on the host 32 lanes at a
+def host_packet(lib, tree, o, d, use_mt, t_cull, max_t=None, lanes=False):
+    """(t, row) or the occlusion mask of the host-compiled per-thread walk
+    (packet_walk), and its (non-triangle, node, triangle) test counts;
+    with ``lanes`` each ray's counts (n, 3) in their place."""
+    out, counts, stats = _tree_walk(lib.h_packet, tree, o, d, use_mt, t_cull,
+                                    max_t, 3)
+    return out, counts if lanes else stats
+
+
+def host_warp(lib, tree, o, d, use_mt, t_cull, max_t=None, lanes=False):
+    """(t, row) of packet_kernel's warp walk or, where ``max_t`` is given,
+    the occlusion mask of occlusion_kernel's, run on the host 32 lanes at a
     time, and its counts: the lanes' non-triangle, node and triangle tests,
-    then the warps' node steps and row steps."""
-    n = o.shape[0]
-    t = torch.empty(n)
-    row = torch.empty(n, dtype=torch.int32)
-    stats = torch.zeros(5, dtype=torch.int64)
-    lib.h_warp(ptr(tree.leaf_start), ptr(tree.leaf_count), ptr(tree.skip),
-               ptr(tree.nodes), ptr(tree.rows), tree.m, ptr(o), ptr(d), n,
-               ptr(t), ptr(row), int(use_mt), int(t_cull), ptr(stats))
-    return (t, row), stats.tolist()
+    then the warps' node steps and row steps; with ``lanes`` also each
+    ray's counts (n, 3)."""
+    out, counts, stats = _tree_walk(lib.h_warp, tree, o, d, use_mt, t_cull,
+                                    max_t, 5)
+    return (out, stats, counts) if lanes else (out, stats)
+
+
+def host_frame(lib, split, tab, par, cfg, how=0, bounces=None, emit=False,
+               rays=None, ret=None):
+    """wholeframe_kernel's grid run on the host: the lockstep trace (how
+    0) or the per-thread trace_ray with the any-hit (1) or closest-mode (2)
+    shadow leg, in raygen mode or, given ``rays`` (6 or 9, R) and ``ret``,
+    in consume mode. Returns (colours (n, 3), the state (9, n) with
+    ``emit`` else None, each ray's tests (n, 2, 3): (pre, node, triangle)
+    of its closest walks, then of its shadow legs, and the warps' node and
+    row steps)."""
+    n = cfg.width * cfg.height if rays is None else rays.shape[1]
+    out = torch.zeros(n, 3)
+    state = torch.zeros(9, n) if emit else None
+    counts = torch.zeros(n, 2, 3, dtype=torch.int32)
+    steps = torch.zeros(2, dtype=torch.int64)
+    lib.h_frame(*(ptr(x) for x in split.device_args()), split.m,
+                split.n_other, split.n_sph, ptr(tab), ptr(par), ptr(rays),
+                0 if rays is None else rays.shape[0], ptr(ret), n, ptr(out),
+                ptr(state), cfg.width, cfg.height,
+                cfg.max_bounces if bounces is None else bounces,
+                ctypes.c_float(cfg.shadow_eps),
+                ctypes.c_float(cfg.reflect_eps), int(cfg.use_fresnel),
+                int(cfg.enable_shadows), cfg.tri_mode, how, ptr(counts),
+                ptr(steps))
+    return out, state, counts, steps.tolist()
 
 
 def host_closest(lib, split, o, d, tri_mode, limit=None, warp=False):
@@ -459,6 +591,110 @@ def check_split(lib, split, o, d, label):
     return bad
 
 
+FRAME_W, FRAME_H = 37, 23   # partial tiles and warps; 851 = 26 x 32 + 19
+FRAME_VARIANTS = (("default", {}), ("raw", dict(use_gram_tri=False)),
+                  ("mt+fresnel", dict(use_mt=True, use_fresnel=True)),
+                  ("no shadows, 5 bounces", dict(enable_shadows=False,
+                                                 max_bounces=5)))
+
+
+def frame_inputs(which):
+    """(split tables, attribute table, parameter row) of scene 1, 2 or
+    "typed" (the typed scene with a default camera and a light) on the
+    CPU."""
+    from raytracer_tpu_torch.core.types import Light
+    from raytracer_tpu_torch.render import whitted
+    from raytracer_tpu_torch.render import wholeframe as wf
+    if which == "typed":
+        flat = typed_scene("cpu")
+        lin = linearize(build_bvh(flat, 3))
+        camera = from_euler(fov_deg=60, aspect=4 / 3)
+        light = Light((2.0, -3.0, 1.0), (1.0, 1.0, 1.0), 20.0)
+    else:
+        sc = generate_scene(which, device="cpu")
+        flat, camera, light = sc.flat, sc.camera, sc.light
+        lin = linearize(build_bvh(flat, sc.bvh_max_depth))
+    return (split_scene.prepare(flat, lin),
+            whitted._attr_table(flat).contiguous(),
+            wf.make_params(camera, light).contiguous())
+
+
+def check_frame(lib, split, tab, par, cfg):
+    """wholeframe_kernel's lockstep trace against the per-thread trace_ray
+    on the host, at cfg's size: raygen over cfg.max_bounces bounces;
+    raygen + emit of bounce 1; consume + emit of the rest on the emitted
+    state, re-packed and sorted as the hybrid does it (6 and 9 rows; parked
+    rays last, a partial last warp). Returns, by comparison, the number of
+    pixels or rays that differ: colours and state against trace_ray with
+    the any-hit shadow leg, each lane's closest-walk tests and shadow-leg
+    tests against its closest_walk's and occluded's, and the colours and
+    state against trace_ray with the closest-mode shadow leg."""
+    from raytracer_tpu_torch.render import wholeframe as wf
+
+    def rows(x):
+        return int(x.reshape(x.shape[0], -1).ne(0).any(1).sum())
+    diffs = {}
+
+    def compare(mode, **kw):
+        (cw, sw, nw, _), (ck, sk, nk, _), (cc, sc_, _, _) = (
+            host_frame(lib, split, tab, par, cfg, how, **kw)
+            for how in (0, 1, 2))
+        st = [] if sw is None else [(sw - sk).t(), (sw - sc_).t()]
+        diffs[f"{mode} colour"] = rows(cw - ck)
+        diffs[f"{mode} closest tests"] = rows(nw[:, 0] - nk[:, 0])
+        diffs[f"{mode} shadow tests"] = rows(nw[:, 1] - nk[:, 1])
+        diffs[f"{mode} closest-mode shadow colour"] = rows(cw - cc)
+        if st:
+            diffs[f"{mode} state"] = rows(st[0])
+            diffs[f"{mode} closest-mode shadow state"] = rows(st[1])
+        return sw
+
+    compare("raygen")
+    state = compare("raygen+emit", bounces=1, emit=True)
+    parked = int((state[0] >= 1e30).sum())
+    for n_rows in (6, 9):
+        rays, perm = wf._repack(state, n_rows)
+        compare(f"consume {n_rows} rows", bounces=cfg.max_bounces - 1,
+                emit=True, rays=rays.contiguous(),
+                ret=perm.to(torch.int32).contiguous())
+    return diffs, parked
+
+
+def check_frames(lib, which):
+    """check_frame in every variant of FRAME_VARIANTS on scene ``which``.
+    Returns the count of differences."""
+    from raytracer_tpu_torch.config import RenderConfig
+    split, tab, par = frame_inputs(which)
+    bad = 0
+    for name, kw in FRAME_VARIANTS:
+        cfg = RenderConfig(width=FRAME_W, height=FRAME_H,
+                           **{"max_bounces": 3, **kw})
+        diffs, parked = check_frame(lib, split, tab, par, cfg)
+        bad += sum(diffs.values())
+        print(f"scene {which} frame trace {name} {FRAME_W}x{FRAME_H}: "
+              f"{sum(diffs.values())} differences over "
+              f"{len(diffs)} comparisons ({parked} rays parked after "
+              "bounce 1)" + "".join(f"; {k} {v}" for k, v in diffs.items()
+                                    if v))
+    return bad
+
+
+def check_occlusion(lib, tree, o, d, limit, use_mt, t_cull, label):
+    """occlusion_kernel's warp walk against occlusion_plain and the
+    per-thread packet_walk<MT, CULL, true> (the result and each lane's
+    counts). Returns the count of differences."""
+    ow, sw, cw = host_warp(lib, tree, o, d, use_mt, t_cull, limit, True)
+    ok, ck = host_packet(lib, tree, o, d, use_mt, t_cull, limit, True)
+    op = packet.occlusion_plain(tree, o, d, limit, use_mt, t_cull)
+    diff = [int((ow != op).sum()), int((ok != op).sum()),
+            int((cw != ck).any(1).sum())]
+    print(f"{label} occlusion mt {int(use_mt)} t_cull {int(t_cull)}: warp "
+          f"walk, per-thread walk, lane counts differ on {diff} of "
+          f"{o.shape[0]} rays ({int(op.sum())} occluded); SIMD efficiency "
+          f"{simd_efficiency(sw):.3f}")
+    return sum(diff)
+
+
 def check_brute(lib, rows, counts, o, d, gate, label):
     """brute_kernel's walk against brute_plain, both triangle tests, with
     the run table staged in the kernel's chunks and in chunks of 3000 runs
@@ -492,6 +728,7 @@ def main() -> int:
             perm, counts = brute.sort_scene_by_type(sc.flat)
             split = split_scene.prepare(sc.flat, lin)
             bad += check_split(lib, split, o, d, f"scene {which}")
+            bad += check_frames(lib, which)
             for tri_mode in (0, 1, 2):   # closest_walk with attributes
                 tk, gk = torch.empty(o.shape[0]), torch.empty(o.shape[0])
                 ak = torch.empty(11, o.shape[0])
@@ -521,16 +758,13 @@ def main() -> int:
                           f"{diff}; SIMD efficiency "
                           f"{simd_efficiency(sw):.3f}")
                     limit = occlusion_limits(tp)
-                    ok, _ = host_packet(lib, tree, o, d, use_mt, t_cull,
-                                        limit)
-                    op = packet.occlusion_plain(tree, o, d, limit, use_mt,
-                                                t_cull)
-                    diff = [int((tk != tp).sum()), int((rk != rp).sum()),
-                            int((ok != op).sum())]
+                    bad += check_occlusion(lib, tree, o, d, limit, use_mt,
+                                           t_cull, f"scene {which}")
+                    diff = [int((tk != tp).sum()), int((rk != rp).sum())]
                     bad += sum(diff)
                     print(f"scene {which} packet mt {int(use_mt)} t_cull "
-                          f"{int(t_cull)}: t, row, occlusion differ on "
-                          f"{diff} of {o.shape[0]} rays")
+                          f"{int(t_cull)}: t, row differ on {diff} of "
+                          f"{o.shape[0]} rays")
             for gate in (False, True):
                 rows = brute.pack_rows_ext(
                     sc.flat, perm,
@@ -560,8 +794,15 @@ def main() -> int:
                                           (to / dist[:, None]).contiguous(),
                                           False, True, dist.contiguous())
                     per = [round(x / p.shape[0], 1) for x in st]
+                    _, sw = host_warp(lib, tree, p.contiguous(),
+                                      (to / dist[:, None]).contiguous(),
+                                      False, True, dist.contiguous())
+                    steps = [round(32 * x / p.shape[0], 1) for x in sw[3:]]
                     line += (f"; light rays of the hits {per} "
-                             f"({float(occ.float().mean()):.3f} occluded)")
+                             f"({float(occ.float().mean()):.3f} occluded), "
+                             f"their warp walk: node and row steps a warp "
+                             f"{steps}, SIMD efficiency "
+                             f"{simd_efficiency(sw):.3f}")
                 print(line)
             # the split walk's and the brute walk's work on those rays
             (t, _), cw, sw = host_closest(lib, split, po, pd, 1, warp=True)
@@ -572,6 +813,25 @@ def main() -> int:
                   f"node and row steps a warp "
                   f"{[round(32 * x / po.shape[0], 1) for x in sw]}, SIMD "
                   f"efficiency {lanes / max(32 * sw[1], 1):.3f}")
+            # the frame trace's work at 200x150, 3 bounces (default config)
+            from raytracer_tpu_torch.config import RenderConfig
+            _, tab, par = frame_inputs(which)
+            cfg = RenderConfig(width=200, height=150)
+            for how, name in ((0, "lockstep, any-hit shadow leg"),
+                              (2, "per thread, closest-mode shadow leg")):
+                _, _, nc, fs = host_frame(lib, split, tab, par, cfg, how)
+                per = nc.double().mean(0)
+                line = (f"scene {which} 200x150x3 frame trace ({name}): "
+                        f"closest-walk tests per pixel "
+                        f"{[round(float(x), 1) for x in per[0]]}, shadow-leg "
+                        f"tests {[round(float(x), 1) for x in per[1]]} "
+                        "(pre, node, triangle)")
+                if how == 0:
+                    steps = [round(32 * x / nc.shape[0], 1) for x in fs]
+                    simd = int(nc[:, :, 2].sum()) / max(32 * fs[1], 1)
+                    line += (f"; node and row steps a warp {steps}, SIMD "
+                             f"efficiency {simd:.3f}")
+                print(line)
             rows = brute.pack_rows_ext(sc.flat, perm,
                                        shape_leaf_boxes(lin, sc.num_shapes))
             runs = brute.box_runs(rows, counts)
@@ -598,6 +858,13 @@ def main() -> int:
                                f"typed scene {counts}")
         bad += check_split(lib, split_scene.prepare(typed, typed_lin), o, d,
                            "typed scene")
+        bad += check_frames(lib, "typed")
+        for use_mt in (False, True):
+            for t_cull in (False, True):
+                tree = packet.make_tree(typed_lin, typed, t_cull=t_cull)
+                tp, _ = packet.packet_plain(tree, o, d, use_mt, t_cull)
+                bad += check_occlusion(lib, tree, o, d, occlusion_limits(tp),
+                                       use_mt, t_cull, "typed scene")
     print("host check:", "OK" if bad == 0 else f"{bad} differences")
     return 0 if bad == 0 else 1
 

@@ -1,6 +1,7 @@
-"""A/B timing of the port's kernels across copies of the port: resolve,
-packet, occlusion, closest_hit (closest and occlusion modes) and brute,
-and of the grad leg and the fit step that run closest_hit.
+"""A/B timing of the port's kernels across copies of the port:
+wholeframe (raygen, emit, consume), resolve, packet, occlusion,
+closest_hit (closest and occlusion modes) and brute, of the frames that
+run them, and of the grad leg and the fit step that run closest_hit.
 
     python3 tools/kernel_ab.py LABEL=DIR [LABEL=DIR ...] [--order a,b,b,a]
 
@@ -12,7 +13,10 @@ then each label of ``--order`` (default: each label once) is timed in a
 process of its own on the 800x600 primary rays of scenes 1 and 2, so that
 two versions are compared within one run, e.g. in the order a, b, b, a.
 
-A timed run checks resolve_kernel against ``resolve_plain``,
+A timed run checks wholeframe_kernel against ``wholeframe_plain`` (the
+raygen frame, bounce 1 with its emitted state and the continuation on
+the re-packed sorted state, on every 97th pixel or ray), resolve_kernel
+against ``resolve_plain``,
 packet_kernel against ``packet_plain`` (all four variants on 4096 + 17
 seeded rays, the primary rays on a sample), occlusion_kernel against
 ``occlusion_plain`` and closest_hit_kernel in occlusion mode against
@@ -24,14 +28,19 @@ mode, the primary rays on a sample) and brute_kernel against
 sample of the primary rays), bit for bit, and prints one line
 ``RESULT <label> <json>``: the device ms (torch.profiler, chip_smoke.py's
 ``device_ms``; None when a window lost launches) and the call ms (CUDA
-events, ``cuda_ms``) of resolve_kernel and of ``index_select`` of the
+events, ``cuda_ms``) of wholeframe_kernel (raygen on both scenes' 800x600
+frames at 3 bounces; on scene 2 also bounce 1 with emit and the
+continuation), of resolve_kernel and of ``index_select`` of the
 15-column attribute table, of packet_kernel, occlusion_kernel,
 closest_hit_kernel in both modes and brute_kernel (gate on, as the brute
 renderer runs it), their counts where the copy's kernels give them
 (packet_kernel's and closest_hit_kernel's warp steps and SIMD efficiency,
-brute_kernel's gate and row tests), the brute renderer's frame (call ms),
+brute_kernel's gate and row tests; wholeframe_kernel's tests and, where
+it walks in lockstep, its and occlusion_kernel's warp steps), the call
+ms and device busy ms of the one-launch, hybrid (``sort_bounces``) and
+packet + occlusion frames, the brute renderer's frame (call ms),
 the grad leg and the fit step on scene 1 (``time_fit``), and the
-registers of the kernels. The timers are those of this checkout's
+registers and spills of the kernels. The timers are those of this checkout's
 chip_smoke.py, whatever the copy holds. The card's name and power limit
 come first.
 """
@@ -44,8 +53,8 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESOLVE_CALLS, PACKET_CALLS, REPEATS = 50, 10, 3
 FIT_CALLS, FIT_W, FIT_H = 5, 800, 600
-KERNELS = ("resolve", "packet_kernel", "occlusion", "closest_hit",
-           "brute_kernel")
+KERNELS = ("wholeframe", "resolve", "packet_kernel", "occlusion",
+           "closest_hit", "brute_kernel")
 
 
 def smoke():
@@ -66,6 +75,7 @@ def time_one(label, root):
     from raytracer_tpu_torch.core import camera as cam_ops
     from raytracer_tpu_torch.render import (brute, kernels, packet,
                                             split_scene, whitted)
+    from raytracer_tpu_torch.render import wholeframe as wf
     from raytracer_tpu_torch.render.split import (closest_hit,
                                                   closest_hit_plain, resolve,
                                                   resolve_plain)
@@ -76,7 +86,7 @@ def time_one(label, root):
     _, log, _ = kernels.build()
     kernels.library()
     out = dict(label=label, padded_table=padded, registers={
-        name: regs for name, regs, _ in cs.ptxas_summary(log)
+        name: f"{regs}, {spill}" for name, regs, spill in cs.ptxas_summary(log)
         if name.startswith(KERNELS)})
     ok = True
     gen = torch.Generator().manual_seed(5)
@@ -148,24 +158,107 @@ def time_one(label, root):
                                     for _ in range(REPEATS)]
         r["occlusion_call_ms"] = [cs.cuda_ms(occ, PACKET_CALLS)
                                   for _ in range(REPEATS)]
-        try:
-            st = torch.zeros(5, dtype=torch.int64, device=dev)
-            packet.packet_hit(tree, o, d, False, True, stats=st)
-            st = st.tolist()
-            r["warp_node_row_steps"] = st[3:]
-            r["simd_efficiency"] = (st[0] + st[2]) / (32 * st[4])
-        except ValueError:   # a copy whose packet_kernel counts 3
-            pass
+        r["packet_tests"] = lane_and_warp_counts(
+            lambda st: packet.packet_hit(tree, o, d, False, True, stats=st),
+            dev, True)
+        r["occlusion_tests"] = lane_and_warp_counts(
+            lambda st: packet.occlusion(tree, lo, ld, dist, False, True,
+                                        stats=st), dev, True)
         ok &= time_split(r, cs, split, (o, d), (lo, ld, dist), oq, dq,
                          closest_hit, closest_hit_plain)
         ok &= time_brute(r, cs, brute, sc, lin, shape_leaf_boxes, o, d, oq,
                          dq, RenderConfig())
         if which == 1:
             ok &= time_fit(r, cs, sc, lin, split)
+        ok &= time_frames(r, cs, wf, packet, sc, lin, split, tab15,
+                          RenderConfig(), which)
         out[f"scene {which}"] = r
     out["bit_exact"] = bool(ok)
     print("RESULT", label, json.dumps(out), flush=True)
     return 0 if ok else 1
+
+
+def lane_and_warp_counts(run, dev, rows_of_all_types=False):
+    """The 5 counts of a lockstep kernel (its lanes' tests, then its warps'
+    node and row steps) with the SIMD efficiency: lane row tests (all
+    types, or triangles) over 32 x the row steps; or, for a copy whose
+    kernel counts 3 (one thread a ray), those 3."""
+    import torch
+    try:
+        st = torch.zeros(5, dtype=torch.int64, device=dev)
+        run(st)
+    except ValueError:
+        st = torch.zeros(3, dtype=torch.int64, device=dev)
+        run(st)
+        return dict(tests=st.tolist())
+    st = st.tolist()
+    rows = st[0] + st[2] if rows_of_all_types else st[2]
+    return dict(tests=st[:3], warp_node_row_steps=st[3:],
+                simd_efficiency=rows / max(32 * st[4], 1))
+
+
+def time_frames(r, cs, wf, packet, sc, lin, split, tab, cfg, which):
+    """wholeframe_kernel at 800x600 x 3 bounces: raygen (both scenes) and,
+    on scene 2, bounce 1 with emit and the continuation on the re-packed
+    sorted state (the hybrid's launches), each bit-exact against
+    wholeframe_plain on every 97th pixel or ray; device and call ms, tests
+    and warp steps. Then the call ms and device busy ms of the one-launch,
+    hybrid and packet + occlusion frames."""
+    import torch
+    from raytracer_tpu_torch.render.split import render
+    par = wf.make_params(sc.camera, sc.light)
+    dev = par.device
+    n = cfg.width * cfg.height
+    sub = torch.arange(0, n, 97, device=dev)
+    frame = wf.wholeframe(split, tab, par, cfg)
+    ok = torch.equal(frame.reshape(-1, 3)[sub], wf.wholeframe_plain(
+        split, tab, par, cfg, pixels=sub))
+    runs = {"wholeframe_raygen": dict(fn=lambda st=None: wf.wholeframe(
+        split, tab, par, cfg, stats=st))}
+    if which == 2:
+        acc1, state = wf.wholeframe(split, tab, par, cfg, bounces=1,
+                                    emit_state=True)
+        pc, ps = wf.wholeframe_plain(split, tab, par, cfg, pixels=sub,
+                                     bounces=1, emit_state=True)
+        ok &= torch.equal(acc1.reshape(-1, 3)[sub], pc)
+        ok &= torch.equal(state[:, sub], ps)
+        rays, perm = wf._repack(state, 6)
+        ret = perm.to(torch.int32)
+        rel = wf.wholeframe(split, tab, par, cfg, bounces=cfg.max_bounces - 1,
+                            rays=rays, ret=ret)
+        ok &= torch.equal(rel[sub], wf.wholeframe_plain(
+            split, tab, par, cfg, bounces=cfg.max_bounces - 1,
+            rays=rays[:, sub].contiguous(), ret=ret[sub].contiguous()))
+        runs["wholeframe_emit"] = dict(fn=lambda st=None: wf.wholeframe(
+            split, tab, par, cfg, bounces=1, emit_state=True, stats=st))
+        runs["wholeframe_consume"] = dict(fn=lambda st=None: wf.wholeframe(
+            split, tab, par, cfg, bounces=cfg.max_bounces - 1, rays=rays,
+            ret=ret, stats=st))
+        r["wholeframe_consume_live_rays"] = int((state[0] < 1e30).sum())
+    for name, v in runs.items():
+        r[f"{name}_device_ms"] = [cs.device_ms(v["fn"], PACKET_CALLS)
+                                  for _ in range(REPEATS)]
+        r[f"{name}_call_ms"] = [cs.cuda_ms(v["fn"], PACKET_CALLS)
+                                for _ in range(REPEATS)]
+        r[f"{name}_tests"] = lane_and_warp_counts(v["fn"], dev)
+    hyb = cfg.replace(sort_bounces=True)
+    frames = {
+        "one_launch": lambda: render(sc.flat, lin, sc.camera, sc.light, cfg,
+                                     split=split),
+        "hybrid": lambda: render(sc.flat, lin, sc.camera, sc.light, hyb,
+                                 split=split),
+        "packet_occlusion": lambda: packet.render(sc.flat, lin, sc.camera,
+                                                  sc.light, cfg)}
+    packet.USE_OCCLUSION = True
+    try:
+        for name, fn in frames.items():
+            fn()
+            r[f"frame_{name}_call_ms"] = [cs.cuda_ms(fn, PACKET_CALLS)
+                                          for _ in range(REPEATS)]
+            r[f"frame_{name}_device_busy_ms"] = cs.device_busy_ms(fn)[0]
+    finally:
+        packet.USE_OCCLUSION = False
+    return bool(ok)
 
 
 def time_split(r, cs, split, primary, light, oq, dq, closest_hit,
@@ -197,14 +290,7 @@ def time_split(r, cs, split, primary, light, oq, dq, closest_hit,
                                   for _ in range(REPEATS)]
         r[f"{name}_call_ms"] = [cs.cuda_ms(run, PACKET_CALLS)
                                 for _ in range(REPEATS)]
-        try:
-            st = torch.zeros(5, dtype=torch.int64, device=o.device)
-            run(st)
-            st = st.tolist()
-            r[f"{name}_warp_node_row_steps"] = st[3:]
-            r[f"{name}_simd_efficiency"] = st[2] / max(32 * st[4], 1)
-        except ValueError:   # a copy whose closest_hit_kernel counts 3
-            pass
+        r[f"{name}_tests"] = lane_and_warp_counts(run, o.device)
     return ok
 
 
