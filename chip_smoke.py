@@ -26,11 +26,15 @@ kernel on the main paths' inputs by CUDA events over back-to-back calls
 (the call, which holds the host's issue time where that is longer) and by
 torch.profiler (the device), closest_hit_kernel on both scenes' primary
 rays and in occlusion mode on the light rays of their hits (the timed
-call held bit for bit against the plain version on every 97th ray), brute_kernel
-with its gate and row tests and a bound counted from the rows its gate
-leaves, the lockstep kernels' warp node and row steps and SIMD efficiency
-(wholeframe_kernel in its three modes, closest_hit_kernel, packet_kernel,
-occlusion_kernel), the frames by CUDA events, and prints one
+call held bit for bit against the plain version on every 97th ray),
+fused_kernel on the same primary rays (held bit for bit against
+fused_plain on all of them), brute_kernel with its gate and row tests
+and a bound counted from the rows its gate leaves, the lockstep
+kernels' warp node and row steps and SIMD efficiency (wholeframe_kernel
+in its three modes, closest_hit_kernel, packet_kernel, occlusion_kernel,
+fused_kernel with its closest and shadow legs apart, the closest leg's
+counts taken from closest_hit_kernel on the same rays,
+closest_attrs_kernel), the frames by CUDA events, and prints one
 JSON line of the kernels and, last, {"ok": true, "device": {...}}. Any
 failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA device it exits non-zero at once.
@@ -230,6 +234,9 @@ def main() -> int:
     # -- phase 3b: fused_kernel against fused_plain ---------------------------
     t = time.perf_counter()
     shadow_eps = RenderConfig().shadow_eps
+    st_f = torch.zeros(5, dtype=torch.int64, device=dev)
+    st_c = torch.zeros(5, dtype=torch.int64, device=dev)
+    n_q = N_RAYS + 17   # with N_FUSED: not a multiple of a block or a warp
     for which, (sc, _, split, _) in scenes.items():
         half = N_FUSED // 2
         o_r = torch.rand(half, 3, generator=gen) * 80 - 40
@@ -243,31 +250,44 @@ def main() -> int:
         parked = (torch.rand(N_FUSED, generator=gen) < 0.1).to(dev)
         o[parked] = whitted.PARK_ORIGIN
         d[parked] = whitted._PARK_DIR
-        o, d = o.contiguous(), d.contiguous()
+        # and query_rays' parked, NaN and zero-direction rays
+        o_q, d_q = query_rays(cam_ops, sc.camera, gen, dev, n_q)
+        o = torch.cat([o, o_q]).contiguous()
+        d = torch.cat([d, d_q]).contiguous()
+        parked = ~(o[:, 0] < 1e30)
+        warps = -(-o.shape[0] // 32)
         lp = sc.light.position.contiguous()
         for mode in (1, 0, 2):
-            tk, gk, sk = fused(split, o, d, lp, mode, shadow_eps)
+            st_f.zero_()
+            st_c.zero_()
+            tk, gk, sk = fused(split, o, d, lp, mode, shadow_eps, stats=st_f)
             tp, gp, sp_ = fused_plain(split, o, d, lp, mode, shadow_eps)
-            agree = (gk == gp).float().mean().item()
-            sh_agree = (sk == sp_).float().mean().item()
-            both = (gk == gp) & (tp < INF)
-            dt = (tk - tp).abs()[both].max().item() if both.any() else 0.0
-            rel = ((tk - tp).abs() / tp.abs().clamp_min(1e-30))[both]
-            rel = rel.max().item() if rel.numel() else 0.0
+            closest_hit(split, o, d, mode, stats=st_c)
             hit = tp < INF
-            log(f"phase 3b: scene {which} tri mode {mode}: {N_FUSED} rays "
+            dt = (tk - tp).abs()[hit & (tk < INF)].max().item()
+            # the closest leg walks as closest_hit_kernel does on the same
+            # rays in the same warps; the rest is the shadow leg's
+            legs = {"closest": st_c, "shadow": st_f - st_c}
+            log(f"phase 3b: scene {which} tri mode {mode}: {o.shape[0]} rays "
                 f"({int(parked.sum())} parked, {int((~hit).sum())} miss, "
-                f"{int(sp_.sum())} shadowed): gid agree {agree:.6f}, "
-                f"in_shadow agree {sh_agree:.6f}, max-abs dt {dt:.3g}, max rel "
-                f"dt {rel:.3g}")
-            check(agree >= 0.9999 and sh_agree >= 0.9999 and rel <= 1e-5,
+                f"{int(sp_.sum())} shadowed): t differs on "
+                f"{int((tk != tp).sum())}, gid on {int((gk != gp).sum())}, "
+                f"in_shadow on {int((sk != sp_).sum())}; "
+                + "; ".join(f"{k} leg {fmt_steps(warp_steps(v, warps))}"
+                            for k, v in legs.items()))
+            check(torch.equal(tk, tp) and torch.equal(gk, gp)
+                  and torch.equal(sk, sp_),
                   "fused_kernel disagrees with fused_plain")
             check(bool((tk[parked] == INF).all() and not sk[parked].any()),
                   "a parked ray did not come out as an unshadowed miss")
+            check(all(int(v[4]) > 0 and bool((v >= 0).all())
+                      for v in legs.values()),
+                  "a leg of fused_kernel took no row step")
             err["fused_kernel"] = max(err["fused_kernel"], dt)
     held["fused_kernel"].append(
-        f"phase 3b: {N_FUSED} random and camera rays (a tenth parked) x 3 "
-        "triangle tests, scenes 1 and 2")
+        f"phase 3b: {N_FUSED + n_q} random and camera rays (a tenth parked; "
+        f"of them {n_q} with 8 NaN and 8 of zero direction) x 3 triangle "
+        "tests, scenes 1 and 2: t, gid and in_shadow bit-exact")
     log(f"phase 3b done in {time.perf_counter() - t:.1f}s")
 
     # -- phase 3c: resolve_kernel against resolve_plain -----------------------
@@ -312,15 +332,22 @@ def main() -> int:
         o = torch.cat([primary[which][0], o_q]).contiguous()
         d = torch.cat([primary[which][1], d_q]).contiguous()
         for mode in (1, 0, 2):
-            tk, gk, ak = closest_hit_attrs(split, o, d, mode)
+            st_f.zero_()
+            st_c.zero_()
+            tk, gk, ak = closest_hit_attrs(split, o, d, mode, stats=st_f)
             tp, gp, ap = closest_hit_attrs_plain(split, o, d, mode)
+            closest_hit(split, o, d, mode, stats=st_c)
             t_err = (tk - tp).abs().max().item()
             a_err = (ak - ap).abs().max().item()
             g_bad = int((gk != gp).sum())
             hit = tp < INF
             log(f"phase 3e: scene {which} tri mode {mode}: {o.shape[0]} "
                 f"rays ({int(hit.sum())} hits): t max-abs {t_err:.3g}, gid "
-                f"differs on {g_bad}, attributes max-abs {a_err:.3g}")
+                f"differs on {g_bad}, attributes max-abs {a_err:.3g}; "
+                f"{fmt_steps(warp_steps(st_f, -(-o.shape[0] // 32)))}")
+            # the walk is closest_hit_kernel's, on the same rays and warps
+            check(torch.equal(st_f, st_c) and int(st_f[4]) > 0,
+                  "closest_attrs_kernel's counts are not closest_hit_kernel's")
             check(torch.equal(tk, tp) and torch.equal(gk, gp)
                   and torch.equal(ak, ap),
                   "closest_attrs_kernel disagrees with "
@@ -334,7 +361,8 @@ def main() -> int:
         f"phase 3e: the {FRAME_W}x{FRAME_H} primary rays and {N_RAYS} "
         "random and camera rays (a tenth parked, 8 NaN, 8 of zero "
         "direction) x 3 triangle tests, scenes 1 and 2: t, gid and the 11 "
-        "attributes bit-exact")
+        "attributes bit-exact; lane tests and warp steps those of "
+        "closest_hit_kernel")
     log(f"phase 3e done in {time.perf_counter() - t:.1f}s")
 
     # -- phase 3d: packet, occlusion and brute kernels against their plain
@@ -936,7 +964,8 @@ def main() -> int:
             steps = warp_steps(st5, -(-n // 32))
             k2.setdefault(which, {})[mode] = dict(
                 ms=ms, device_ms=dms, plain_ms=plain_ms, rays=n,
-                bound_ms=bound, bound_by=by, tests=lanes, **steps)
+                bound_ms=bound, bound_by=by, tests=lanes, **steps,
+                counts=st5.tolist())
             log(f"scene {which}: closest_hit_kernel {mode} {ms:.3f} ms "
                 f"(device {fmt(dms)}), closest_hit_plain {plain_ms:.1f} ms "
                 f"({n} {'primary' if lim is None else 'light'} rays); "
@@ -1068,18 +1097,41 @@ def main() -> int:
                                    shadow_eps), TIMED_FRAMES)
         dms = device_ms(lambda: fused(split, o, d, lp, cfg.tri_mode,
                                       shadow_eps), TIMED_FRAMES)
-        plain_ms = cuda_ms(lambda: fused_plain(split, o, d, lp, cfg.tri_mode,
-                                               shadow_eps), 1)
-        stats.zero_()
-        fused(split, o, d, lp, cfg.tri_mode, shadow_eps, stats=stats)
-        bound, _, by = bound_ms(stats, split, out_bytes=n * 9,
+        ref = []
+        plain_ms = cuda_ms(lambda: ref.append(fused_plain(
+            split, o, d, lp, cfg.tri_mode, shadow_eps)), 1)
+        st5.zero_()
+        got = fused(split, o, d, lp, cfg.tri_mode, shadow_eps, stats=st5)
+        # the frame's rays in image order, a warp on 32 pixels of one row
+        check(all(torch.equal(a, b) for a, b in zip(got, ref[0])),
+              f"scene {which}: fused_kernel disagrees with fused_plain on "
+              f"the {n} primary rays")
+        # fused_kernel counts its two legs together. The closest leg's
+        # counts are closest_hit_kernel's on the same rays and warps (k2),
+        # the shadow leg's are the rest: derived, not read from the kernel
+        closest_st = torch.tensor(k2[which]["closest"]["counts"], device=dev)
+        legs = {"closest": closest_st, "shadow": st5 - closest_st}
+        bound, _, by = bound_ms(st5[:3], split, out_bytes=n * 9,
                                 in_bytes=table_bytes(split) + n * 24 + 12)
         k3[which] = dict(ms=ms, device_ms=dms, plain_ms=plain_ms,
-                         bound_ms=bound, bound_by=by, tests=stats.tolist())
+                         bound_ms=bound, bound_by=by, tests=st5.tolist()[:3],
+                         **warp_steps(st5, -(-n // 32)),
+                         legs={k: dict(tests=v.tolist()[:3],
+                                       **warp_steps(v, -(-n // 32)))
+                               for k, v in legs.items()},
+                         legs_from="closest leg: closest_hit_kernel's counts "
+                         "on the same rays; shadow leg: fused_kernel's "
+                         "total less them")
+        check(all(int(v[4]) > 0 and bool((v >= 0).all())
+                  for v in legs.values()),
+              f"scene {which}: a leg of fused_kernel took no row step")
         log(f"scene {which}: fused_kernel {ms:.3f} ms (device {fmt(dms)}), "
             f"fused_plain "
             f"{plain_ms:.1f} ms ({n} primary rays); tests "
-            f"{stats.tolist()}, bound {bound:.4f} ms")
+            f"{st5.tolist()[:3]} (the shadow leg's any-hit), bound "
+            f"{bound:.4f} ms ({by}); {fmt_steps(k3[which])}; "
+            + "; ".join(f"{k} leg tests {v['tests']}, {fmt_steps(v)}"
+                        for k, v in k3[which]["legs"].items()))
 
         # the kernel, and index_select of the rows (the gather alone) on
         # the same padded table and on the 15-column one, each by CUDA
@@ -1116,6 +1168,10 @@ def main() -> int:
                         f"{v['host_ms']:.4f} ms)"
                         for k, v in lib.items())
             + f"; bound {bound:.4f} ms ({by})")
+
+    held["fused_kernel"].append(
+        f"timing: all {FRAME_W}x{FRAME_H} primary rays in image order, "
+        "scenes 1 and 2: t, gid and in_shadow bit-exact")
 
     # packet_kernel, occlusion_kernel and brute_kernel on each frame's
     # primary rays (occlusion_kernel: the light rays of the primary hits),
@@ -1258,14 +1314,18 @@ def main() -> int:
                         TIMED_FRAMES)
         plain_ms = cuda_ms(lambda: closest_hit_attrs_plain(
             split, o, d, cfg.tri_mode), 1)
-        stats.zero_()
-        closest_hit_attrs(split, o, d, cfg.tri_mode, stats=stats)
+        st5.zero_()
+        closest_hit_attrs(split, o, d, cfg.tri_mode, stats=st5)
+        check(st5.tolist() == k2[which]["closest"]["counts"],
+              f"scene {which}: closest_attrs_kernel's counts are not "
+              "closest_hit_kernel's on the same rays")
         # beyond the walk, a hit's normal costs what resolve's does
-        bound, _, by = bound_ms(stats, split, out_bytes=n * (8 + 44),
+        bound, _, by = bound_ms(st5[:3], split, out_bytes=n * (8 + 44),
                                 in_bytes=table_bytes(split) + n * 24,
                                 extra_ops=n * OPS_RESOLVE)
         k4[which] = dict(ms=ms, device_ms=dms, plain_ms=plain_ms,
-                         bound_ms=bound, bound_by=by, tests=stats.tolist())
+                         bound_ms=bound, bound_by=by, tests=st5.tolist()[:3],
+                         **warp_steps(st5, -(-n // 32)))
         split_mod.USE_KERNEL_ATTRS = True
         try:
             frame = (lambda: render(sc.flat, lin, sc.camera, sc.light, cfg,
@@ -1279,7 +1339,8 @@ def main() -> int:
         log(f"scene {which}: closest_attrs_kernel {ms:.3f} ms (device "
             f"{fmt(dms)}), "
             f"closest_hit_attrs_plain {plain_ms:.1f} ms ({n} primary rays); "
-            f"tests {stats.tolist()}, bound {bound:.4f} ms ({by}); "
+            f"tests {st5.tolist()[:3]}, bound {bound:.4f} ms ({by}); "
+            f"{fmt_steps(k4[which])}; "
             f"USE_KERNEL_ATTRS frame {ka_ms[which]:.3f} ms (per-bounce "
             f"{pb_ms[which]:.3f}), device busy "
             + ("not measured" if busy is None else f"{busy:.3f} ms"))
@@ -1328,6 +1389,10 @@ def main() -> int:
                 k2[which][mode]
         for name in ("packet_kernel", "occlusion_kernel"):
             lockstep[f"scene {which} {name}"] = k678[name][which]["tests"]
+        lockstep[f"scene {which} fused_kernel"] = k3[which]
+        for leg, v in k3[which]["legs"].items():
+            lockstep[f"scene {which} fused_kernel {leg} leg"] = v
+        lockstep[f"scene {which} closest_attrs_kernel"] = k4[which]
     for k, v in lockstep.items():
         log(f"lockstep walks: {k}: {fmt_steps(v)}")
 

@@ -23,15 +23,21 @@
 //   per-lane culling, a leaf's rows staged in shared memory by cp.async
 //   (32 rows a chunk, double buffered), ROW_ILP rows a lane before its
 //   updates; bit for bit the per-thread walk (closest_walk, occluded).
-// fused_kernel replaces pallas_split.py::_fused_kernel (905-958): one
-//   thread per ray, the closest hit with normals and then the shadow walk
-//   toward the light, so a bounce of the per-bounce route is one launch.
+// fused_kernel replaces pallas_split.py::_fused_kernel (905-958): the
+//   closest hit with normals and then the shadow walk toward the light, so
+//   a bounce of the per-bounce route is one launch. A warp walks its 32
+//   rays in lockstep (raytrace.cuh::warp_fused): the closest hit by the
+//   split walk, the normal read once from the winning row, then the
+//   shadow ray of each lane with a hit (fused_shadow_ray, the per-thread
+//   fused_ray's code) by the split walk's any-hit mode below the light
+//   distance; bit for bit fused_ray and fused_plain.
 // closest_attrs_kernel replaces pallas_split.py::_split_kernel_attrs
-//   (967-975): one thread per ray, the closest hit (t, gid) with the 11
-//   shading attributes of the winning shape (normal, colour, ka, kd, ks,
-//   kf, shininess). The walk keeps the winner's row, whose material
-//   columns are read once after it (the TPU kernel carries 11 values
-//   through its loop); misses and parked rays give zero attributes.
+//   (967-975): the closest hit (t, gid) with the 11 shading attributes of
+//   the winning shape (normal, colour, ka, kd, ks, kf, shininess). A warp
+//   walks its 32 rays in lockstep by closest_hit_kernel's split walk; the
+//   normal and the material columns are read once from the winning row
+//   after it (split_attrs; the TPU kernel carries 11 values through its
+//   loop); misses and parked rays give zero attributes.
 // resolve_kernel replaces pallas_split.py::_resolve_kernel (978-1033):
 //   the TPU's loop over a tile's distinct ids becomes a per-ray gather from
 //   a copy of the attribute table padded to 16 floats, so that a row is
@@ -64,23 +70,20 @@
 // What bounds them on this card: the walks are bound by operations, not
 // bytes. The tables (0.25 MB for scene 1, 0.85 MB for scene 2) stay in L2
 // and L1; a pixel's walks do tens to a hundred pre-pass, node and triangle
-// tests of 27-71 f32 operations each (chip_smoke.py counts them). The
-// per-thread kernels (fused_kernel, closest_attrs_kernel) are the simple
-// design: a stackless walk, scalar loads through the read-only cache,
-// threads of a warp on neighbouring rays so that they walk similar nodes;
-// divergence between the lanes of a warp is what they leave on the table.
-// The lockstep kernels keep a warp's lanes in step instead: on scene 2's
+// tests of 27-71 f32 operations each (chip_smoke.py counts them). A
+// per-thread stackless walk lets the lanes of a warp diverge; every walk
+// on the card now keeps a warp's lanes in step instead: on scene 2's
 // 800x600 primary rays 83% of the lanes of packet_kernel's row steps test
 // the row, and it takes 0.63 ms against an operations bound of 0.047 ms
 // (scene 1: 0.10 ms against 0.0046 ms of bytes; NVIDIA H100 80GB HBM3 at
 // 700 W, device time from chip_smoke.py), held back by the latency of
 // each lane's chain of row tests more than by issue slots;
-// closest_hit_kernel's split walk, wholeframe_kernel's trace and
-// occlusion_kernel keep their lanes in step the same way. resolve_kernel
-// does no walk: it moves 16 bytes in and 44 out per ray and is bound by
-// bytes (0.0087 ms on 480,000 rays); it takes 0.0100-0.0103 ms on the
-// device, 0.85-0.87 of that bound (index_select of the rows alone:
-// 0.021-0.022 ms). brute_kernel is bound by operations: its gates (one a
+// closest_hit_kernel's split walk, wholeframe_kernel's trace,
+// occlusion_kernel, fused_kernel and closest_attrs_kernel keep their lanes
+// in step the same way. resolve_kernel does no walk: it moves 16 bytes in
+// and 44 out per ray and is bound by bytes (0.0087 ms on 480,000 rays); it
+// takes 0.0100-0.0103 ms on the device, 0.85-0.87 of that bound
+// (index_select of the rows alone: 0.021-0.022 ms). brute_kernel is bound by operations: its gates (one a
 // run, 985-1,059 a ray on scenes 1 and 2) and the row tests of the runs
 // whose box some lane of the warp hits (0.9% of the rows on scene 1, 5.9%
 // on scene 2, tools/host_check.py).
@@ -178,53 +181,6 @@ wholeframe_kernel(Tables s, const float* __restrict__ tab,
   add_warp_stats(stats, wc);
 }
 
-template <int TRI>
-__global__ void __launch_bounds__(BLOCK)
-fused_kernel(Tables s, const float* __restrict__ o,
-             const float* __restrict__ d, const float* __restrict__ light,
-             int n, float shadow_eps, float* __restrict__ t_out,
-             int* __restrict__ gid_out, unsigned char* __restrict__ sh_out,
-             unsigned long long* stats) {
-  int i = blockIdx.x * BLOCK + (int)threadIdx.x;
-  if (i >= n) return;
-  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
-                   d[3 * i + 1], d[3 * i + 2]);
-  Counts c = {0u, 0u, 0u};
-  float t, gid;
-  bool in_shadow;
-  fused_ray<TRI>(s, r, ld(light), ld(light + 1), ld(light + 2), shadow_eps,
-                 c, t, gid, in_shadow);
-  t_out[i] = t;
-  gid_out[i] = (int)gid;
-  sh_out[i] = in_shadow ? 1 : 0;
-  add_stats(stats, c);
-}
-
-// attrs: 11 rows of n floats (n(3), color(3), ka, kd, ks, kf,
-// shininess).
-template <int TRI>
-__global__ void __launch_bounds__(BLOCK)
-closest_attrs_kernel(Tables s, const float* __restrict__ o,
-                     const float* __restrict__ d, int n,
-                     float* __restrict__ t_out, int* __restrict__ gid_out,
-                     float* __restrict__ attrs,
-                     unsigned long long* stats) {
-  int i = blockIdx.x * BLOCK + (int)threadIdx.x;
-  if (i >= n) return;
-  Ray r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
-                   d[3 * i + 1], d[3 * i + 2]);
-  Counts c = {0u, 0u, 0u};
-  Hit h = closest_walk<TRI, true, true>(s, G_GID, T_GID, r, INF, c);
-  t_out[i] = h.t;
-  gid_out[i] = (int)h.id;
-  attrs[i] = h.nx;
-  attrs[(long long)n + i] = h.ny;
-  attrs[2LL * n + i] = h.nz;
-  for (int k = 0; k < N_MAT; ++k)
-    attrs[(3LL + k) * n + i] = h.mat != nullptr ? ld(h.mat + k) : 0.0f;
-  add_stats(stats, c);
-}
-
 // resolve_kernel: one ray a thread, in blocks of RES_BLOCK threads. On the
 // card this was faster than two or four rays a thread with all their
 // loads issued before any arithmetic (tools/kernel_ab.py, PERF.md).
@@ -318,6 +274,26 @@ occlusion_kernel(Tree s, const float* __restrict__ o,
 
 constexpr int SPLIT_BLOCK = 128, SPLIT_WARPS = SPLIT_BLOCK / 32;
 
+// The split walk's entry for the kernels below: thread i of the grid is
+// lane a, on ray i below limit[i] (INF without a limit) if i < n, else a
+// lane that never walks. Returns whether the thread holds a ray.
+__device__ __forceinline__ bool split_entry(SplitLane& a, const Tables& s,
+                                            const float* __restrict__ o,
+                                            const float* __restrict__ d,
+                                            const float* __restrict__ limit,
+                                            int n, int i) {
+  bool live = i < n;
+  Ray r = make_ray(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
+  float lim = INF;
+  if (live) {
+    r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                 d[3 * i + 1], d[3 * i + 2]);
+    if (limit != nullptr) lim = limit[i];
+  }
+  split_lane_init(a, s, live, r, lim);
+  return live;
+}
+
 // closest_hit_kernel: the split walk (raytrace.cuh::split_walk), one warp
 // of 32 rays in lockstep. Every thread of a warp stays to the end: a thread
 // past n is a lane that never walks. stats: the lanes' pre-pass, node and
@@ -331,16 +307,8 @@ closest_hit_kernel(Tables s, const float* __restrict__ o,
                    unsigned long long* stats) {
   __shared__ __align__(16) float rows_buf[SPLIT_WARPS][2 * SPLIT_CHUNK_FLOATS];
   int i = blockIdx.x * SPLIT_BLOCK + (int)threadIdx.x;
-  bool live = i < n;
-  Ray r = make_ray(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
-  float lim = INF;
-  if (live) {
-    r = make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
-                 d[3 * i + 1], d[3 * i + 2]);
-    if (OCCLUSION) lim = limit[i];
-  }
   SplitLane a;
-  split_lane_init(a, s, live, r, lim);
+  bool live = split_entry(a, s, o, d, OCCLUSION ? limit : nullptr, n, i);
   WarpCounts wc = {0u, 0u};
   split_walk<CardWarp, TRI, OCCLUSION>(s, &a, rows_buf[threadIdx.x >> 5], wc);
   if (live) {
@@ -351,6 +319,65 @@ closest_hit_kernel(Tables s, const float* __restrict__ o,
       t_out[i] = a.t;
       gid_out[i] = (int)split_id(s, a, G_GID, T_GID);
     }
+    add_stats(stats, a.c);
+  }
+  add_warp_stats(stats, wc);
+}
+
+// fused_kernel: the lockstep closest hit and shadow leg (raytrace.cuh::
+// warp_fused), one warp of 32 rays, blocks and staging buffers as in
+// closest_hit_kernel. Every thread of a warp stays to the end: a thread
+// past n is a lane that never walks. stats: the lanes' pre-pass, node and
+// triangle tests of both legs (0-2) and the warps' node and row steps of
+// both walks (3, 4).
+template <int TRI>
+__global__ void __launch_bounds__(SPLIT_BLOCK)
+fused_kernel(Tables s, const float* __restrict__ o,
+             const float* __restrict__ d, const float* __restrict__ light,
+             int n, float shadow_eps, float* __restrict__ t_out,
+             int* __restrict__ gid_out, unsigned char* __restrict__ sh_out,
+             unsigned long long* stats) {
+  __shared__ __align__(16) float rows_buf[SPLIT_WARPS][2 * SPLIT_CHUNK_FLOATS];
+  int i = blockIdx.x * SPLIT_BLOCK + (int)threadIdx.x;
+  SplitLane a;
+  bool live = split_entry(a, s, o, d, nullptr, n, i);
+  bool in_shadow;
+  WarpCounts wc = {0u, 0u};
+  warp_fused<CardWarp, TRI>(s, &a, ld(light), ld(light + 1), ld(light + 2),
+                            shadow_eps, &in_shadow, nullptr,
+                            rows_buf[threadIdx.x >> 5], wc);
+  if (live) {
+    t_out[i] = a.t;
+    gid_out[i] = (int)split_id(s, a, G_GID, T_GID);
+    sh_out[i] = in_shadow ? 1 : 0;
+    add_stats(stats, a.c);
+  }
+  add_warp_stats(stats, wc);
+}
+
+// closest_attrs_kernel: the closest-mode split walk of closest_hit_kernel,
+// then t, the gid and the 11 attributes of the winning row (raytrace.cuh::
+// split_attrs). attrs: 11 rows of n floats (n(3), color(3), ka, kd, ks,
+// kf, shininess). Threads and stats as in closest_hit_kernel.
+template <int TRI>
+__global__ void __launch_bounds__(SPLIT_BLOCK)
+closest_attrs_kernel(Tables s, const float* __restrict__ o,
+                     const float* __restrict__ d, int n,
+                     float* __restrict__ t_out, int* __restrict__ gid_out,
+                     float* __restrict__ attrs,
+                     unsigned long long* stats) {
+  __shared__ __align__(16) float rows_buf[SPLIT_WARPS][2 * SPLIT_CHUNK_FLOATS];
+  int i = blockIdx.x * SPLIT_BLOCK + (int)threadIdx.x;
+  SplitLane a;
+  bool live = split_entry(a, s, o, d, nullptr, n, i);
+  WarpCounts wc = {0u, 0u};
+  split_walk<CardWarp, TRI, false>(s, &a, rows_buf[threadIdx.x >> 5], wc);
+  if (live) {
+    t_out[i] = a.t;
+    gid_out[i] = (int)split_id(s, a, G_GID, T_GID);
+    float v[3 + N_MAT];
+    split_attrs(s, a, v);
+    for (int k = 0; k < 3 + N_MAT; ++k) attrs[k * (long long)n + i] = v[k];
     add_stats(stats, a.c);
   }
   add_warp_stats(stats, wc);
@@ -485,10 +512,10 @@ int rt_fused(const int* leaf_start, const int* leaf_count, const int* skip,
              unsigned long long* stats, void* stream) {
   rt::Tables s = {leaf_start, leaf_count, skip, nodes, pre, tri,
                   m, n_other, n_sph};
-  int grid = (n + rt::BLOCK - 1) / rt::BLOCK;
+  int grid = (n + rt::SPLIT_BLOCK - 1) / rt::SPLIT_BLOCK;
   cudaStream_t st = (cudaStream_t)stream;
 #define RT_LAUNCH(TRI)                                                    \
-  rt::fused_kernel<TRI><<<grid, rt::BLOCK, 0, st>>>(                       \
+  rt::fused_kernel<TRI><<<grid, rt::SPLIT_BLOCK, 0, st>>>(                 \
       s, o, d, light, n, shadow_eps, t_out, gid_out, sh_out, stats)
   switch (tri_mode) {
     case rt::TRI_RAW: RT_LAUNCH(rt::TRI_RAW); break;
@@ -509,10 +536,10 @@ int rt_closest_attrs(const int* leaf_start, const int* leaf_count,
                      unsigned long long* stats, void* stream) {
   rt::Tables s = {leaf_start, leaf_count, skip, nodes, pre, tri,
                   m, n_other, n_sph};
-  int grid = (n + rt::BLOCK - 1) / rt::BLOCK;
+  int grid = (n + rt::SPLIT_BLOCK - 1) / rt::SPLIT_BLOCK;
   cudaStream_t st = (cudaStream_t)stream;
 #define RT_LAUNCH(TRI)                                                    \
-  rt::closest_attrs_kernel<TRI><<<grid, rt::BLOCK, 0, st>>>(               \
+  rt::closest_attrs_kernel<TRI><<<grid, rt::SPLIT_BLOCK, 0, st>>>(         \
       s, o, d, n, t_out, gid_out, attrs, stats)
   switch (tri_mode) {
     case rt::TRI_RAW: RT_LAUNCH(rt::TRI_RAW); break;

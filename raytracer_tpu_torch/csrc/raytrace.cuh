@@ -15,10 +15,10 @@
 // The spec is the per-ray result, not the TPU's packet mechanics: a lane's
 // hit never depends on which other rays share its packet, so each thread
 // walks the skip-pointer tree alone (closest_walk, occluded, packet_walk,
-// trace_ray: fused_kernel's and closest_attrs_kernel's walks, and the
-// per-lane references of tools/host_check.py), or a warp walks it in
-// lockstep (warp_walk, split_walk, warp_trace, brute_walk) while each lane
-// still evaluates exactly its own walk's nodes and rows. Every arithmetic
+// trace_ray, fused_ray: the per-lane references of tools/host_check.py),
+// or a warp walks it in lockstep (warp_walk, split_walk, warp_trace,
+// warp_fused, brute_walk: the kernels' walks) while each lane still
+// evaluates exactly its own walk's nodes and rows. Every arithmetic
 // expression keeps the JAX kernel's order of operations; build with
 // -fmad=false so that no multiply-add is contracted and edge accepts stay
 // in step with the plain PyTorch versions. min/max propagate NaN like jnp.minimum/jnp.maximum
@@ -606,18 +606,17 @@ __device__ void trace_ray(const Tables& s, const float* tab, const float* par,
   if (!alive && sh.bounces > 0) park(st);   // an ended ray: the parked ray
 }
 
-// _fused_kernel for one ray: the closest hit with normals, then, in the
-// same thread, the shadow ray from p + n * shadow_eps toward the light,
-// walked with t_init = limit (the light distance), so in_shadow = st <
-// limit. A miss parks the shadow ray with limit 0: unshadowed. A parked
-// input ray misses.
-template <int TRI>
-__device__ void fused_ray(const Tables& s, const Ray& r, float lx, float ly,
-                          float lz, float shadow_eps, Counts& c, float& t,
-                          float& gid, bool& in_shadow) {
-  Hit h = closest_walk<TRI, true>(s, G_GID, T_GID, r, INF, c);
-  bool hit = h.t < INF;
-  float ts = hit ? h.t : 0.0f;
+// _fused_kernel's shadow ray of a ray r with its closest hit (hit) at t
+// and normal n: from p + n * shadow_eps, p = o + t * d, toward the light
+// (lx, ly, lz), normalised with eps 1e-30 (normalize(.., eps=1e-30)), its
+// limit the light's distance from p. A miss parks the ray with limit 0:
+// unshadowed. fused_ray and warp_fused share this code.
+__device__ __forceinline__ Ray fused_shadow_ray(const Ray& r, bool hit,
+                                                float t, float nx, float ny,
+                                                float nz, float lx, float ly,
+                                                float lz, float shadow_eps,
+                                                float& limit) {
+  float ts = hit ? t : 0.0f;
   float px = r.ox + ts * r.dx;
   float py = r.oy + ts * r.dy;
   float pz = r.oz + ts * r.dz;
@@ -625,17 +624,34 @@ __device__ void fused_ray(const Tables& s, const Ray& r, float lx, float ly,
   float ldy = ly - py;
   float ldz = lz - pz;
   float dist = sqrtf(ldx * ldx + ldy * ldy + ldz * ldz);
-  float inv = 1.0f / jmax(dist, 1e-30f);   // normalize(.., eps=1e-30)
-  Ray sray = hit ? make_ray(px + h.nx * shadow_eps, py + h.ny * shadow_eps,
-                            pz + h.nz * shadow_eps, ldx * inv, ldy * inv,
-                            ldz * inv)
-                 : make_ray(PARK_ORIGIN, PARK_ORIGIN, PARK_ORIGIN, PARK_DIR,
-                            PARK_DIR, PARK_DIR);
-  float limit = hit ? dist : 0.0f;
-  Hit sh_hit = closest_walk<TRI, false>(s, G_GID, T_GID, sray, limit, c);
+  float inv = 1.0f / jmax(dist, 1e-30f);
+  limit = hit ? dist : 0.0f;
+  return hit ? make_ray(px + nx * shadow_eps, py + ny * shadow_eps,
+                        pz + nz * shadow_eps, ldx * inv, ldy * inv,
+                        ldz * inv)
+             : make_ray(PARK_ORIGIN, PARK_ORIGIN, PARK_ORIGIN, PARK_DIR,
+                        PARK_DIR, PARK_DIR);
+}
+
+// _fused_kernel for one ray, per thread (the per-lane reference of
+// warp_fused in tools/host_check.py): the closest hit with normals (tests
+// in c), then the shadow ray of fused_shadow_ray (tests in cs), walked by
+// occluded below its limit (ANY_HIT) or by closest_walk with t_init =
+// limit, in_shadow = t < limit: the same answer (trace_ray's argument). A
+// parked input ray misses.
+template <int TRI, bool ANY_HIT = true>
+__device__ void fused_ray(const Tables& s, const Ray& r, float lx, float ly,
+                          float lz, float shadow_eps, Counts& c, Counts& cs,
+                          float& t, float& gid, bool& in_shadow) {
+  Hit h = closest_walk<TRI, true>(s, G_GID, T_GID, r, INF, c);
+  float limit;
+  Ray sray = fused_shadow_ray(r, h.t < INF, h.t, h.nx, h.ny, h.nz, lx, ly,
+                              lz, shadow_eps, limit);
   t = h.t;
   gid = h.id;
-  in_shadow = sh_hit.t < limit;
+  in_shadow = ANY_HIT ? occluded<TRI>(s, sray, limit, cs)
+                      : closest_walk<TRI, false>(s, G_GID, T_GID, sray,
+                                                 limit, cs).t < limit;
 }
 
 // _resolve_kernel for one ray from its row v[0..15] of the padded
@@ -1480,6 +1496,31 @@ __device__ __forceinline__ void split_normal(const Tables& s,
   nx = ld(p + T_NX); ny = ld(p + T_NX + 1); nz = ld(p + T_NX + 2);
 }
 
+// The material columns (colour rgb, ka, kd, ks, kf, shininess) of the
+// winning row of a closest-mode split walk: G_MCR.. of a pre row, T_MCR..
+// of a triangle row, as closest_walk<..., MAT> keeps h.mat; null on a miss.
+__device__ __forceinline__ const float* split_mat(const Tables& s,
+                                                  const SplitLane& a) {
+  if (a.ref < 0) return nullptr;
+  if (a.ref < s.n_other) return s.pre + a.ref * PRE_W + G_MCR;
+  return s.tri + (long long)(a.ref - s.n_other) * TRI_W + T_MCR;
+}
+
+// closest_attrs_kernel's 11 shading attributes of a closest-mode split
+// walk's hit, read once after the walk: the normal (split_normal) and the
+// material columns (split_mat); zeros on a miss, as closest_walk<TRI,
+// true, true> leaves them.
+__device__ __forceinline__ void split_attrs(const Tables& s,
+                                            const SplitLane& a, float* v) {
+  const float* mat = split_mat(s, a);
+  if (mat == nullptr) {
+    for (int k = 0; k < 3 + N_MAT; ++k) v[k] = 0.0f;
+    return;
+  }
+  split_normal(s, a, v[0], v[1], v[2]);
+  for (int k = 0; k < N_MAT; ++k) v[3 + k] = ld(mat + k);
+}
+
 // ---- wholeframe_kernel's lockstep frame trace -------------------------
 //
 // trace_ray for the 32 pixels (or rays) of a warp. The bounce loop is
@@ -1645,6 +1686,42 @@ __device__ __forceinline__ void warp_trace(const Tables& s, const float* tab,
   if (sh.bounces > 0)   // an ended ray leaves the parked ray
     for (int l = 0; l < W::N; ++l)
       if (!ln[l].alive) park(ln[l].st);
+}
+
+// ---- fused_kernel's lockstep walk --------------------------------------
+//
+// fused_ray<TRI, true> for the W::N lanes h of one warp, each set up by
+// split_lane_init with its ray (live or not) and limit INF: the closest
+// hit by a closest-mode split_walk, whose winning row gives the normal
+// (split_normal); then each lane with a hit builds fused_shadow_ray, and
+// the any-hit split_walk tests it below the light's distance; a lane
+// without one never walks (in_shadow false, as fused_ray's parked shadow
+// ray). On return h holds the closest walk (t, the winning row for
+// split_id, its tests), in_shadow[l] the lane's answer, and lane l's
+// shadow-leg tests are in cs[l] (null: in h[l].c as well). Each lane's
+// t, id, answer and tests are fused_ray<TRI, true>'s. buf: this warp's
+// staging buffer (2 * SPLIT_CHUNK_FLOATS floats, 16-byte aligned).
+template <class W, int TRI>
+__device__ __forceinline__ void warp_fused(const Tables& s, SplitLane* h,
+                                           float lx, float ly, float lz,
+                                           float shadow_eps, bool* in_shadow,
+                                           Counts* cs, float* buf,
+                                           WarpCounts& wc) {
+  split_walk<W, TRI, false>(s, h, buf, wc);
+  SplitLane sl[W::N];
+  for (int l = 0; l < W::N; ++l) {
+    bool hit = h[l].t < INF;
+    float nx = 0.0f, ny = 0.0f, nz = 0.0f, limit;
+    if (hit) split_normal(s, h[l], nx, ny, nz);
+    Ray sr = fused_shadow_ray(h[l].r, hit, h[l].t, nx, ny, nz, lx, ly, lz,
+                              shadow_eps, limit);
+    split_lane_init(sl[l], s, hit, sr, limit);
+  }
+  split_walk<W, TRI, true>(s, sl, buf, wc);
+  for (int l = 0; l < W::N; ++l) {
+    in_shadow[l] = sl[l].occ;
+    add_counts(cs != nullptr ? cs[l] : h[l].c, sl[l].c);
+  }
 }
 
 }  // namespace rt

@@ -426,7 +426,8 @@ def fused(split: SplitScene, o: torch.Tensor, d: torch.Tensor,
     """Closest hit and shadow answer of R rays o, d (R, 3) f32 toward the
     light at light_pos (3,): (t, gid int32, in_shadow bool). On a CUDA
     tensor this launches ``fused_kernel``; on a CPU tensor it runs
-    ``fused_plain``. ``stats`` as for ``closest_hit``."""
+    ``fused_plain``. ``stats`` as for ``closest_hit``: the tests of both
+    legs (the shadow leg's an any-hit walk) and both walks' warp steps."""
     dev = o.device
     if dev.type == "cpu":
         return fused_plain(split, o, d, light_pos, tri_mode, shadow_eps)
@@ -437,7 +438,7 @@ def fused(split: SplitScene, o: torch.Tensor, d: torch.Tensor,
     kernels.check_tensor("d", d, torch.float32, dev, (n, 3))
     kernels.check_tensor("light_pos", light_pos, torch.float32, dev, (3,))
     if stats is not None:
-        kernels.check_tensor("stats", stats, torch.int64, dev, (3,))
+        kernels.check_tensor("stats", stats, torch.int64, dev, (5,))
     t = torch.empty(n, dtype=torch.float32, device=dev)
     gid = torch.empty(n, dtype=torch.int32, device=dev)
     in_shadow = torch.empty(n, dtype=torch.bool, device=dev)
@@ -546,7 +547,7 @@ def closest_hit_attrs(split: SplitScene, o: torch.Tensor, d: torch.Tensor,
     kernels.check_tensor("o", o, torch.float32, dev, (None, 3))
     kernels.check_tensor("d", d, torch.float32, dev, (n, 3))
     if stats is not None:
-        kernels.check_tensor("stats", stats, torch.int64, dev, (3,))
+        kernels.check_tensor("stats", stats, torch.int64, dev, (5,))
     t = torch.empty(n, dtype=torch.float32, device=dev)
     gid = torch.empty(n, dtype=torch.int32, device=dev)
     attrs = torch.empty((N_ATTRS, n), dtype=torch.float32, device=dev)

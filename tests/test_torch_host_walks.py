@@ -1,5 +1,6 @@
 """The lockstep walks of packet_kernel, occlusion_kernel, brute_kernel,
-closest_hit_kernel and wholeframe_kernel, compiled for the host.
+closest_hit_kernel, wholeframe_kernel, fused_kernel and
+closest_attrs_kernel, compiled for the host.
 
 ``tools/host_check.py`` compiles the CUDA device code of
 ``raytracer_tpu_torch/csrc/raytrace.cuh`` with g++ under a host lane
@@ -32,7 +33,17 @@ zero direction, a count that is not a multiple of 32):
   against ``closest_walk``'s and its shadow-leg tests against
   ``occluded``'s, and colours and state also against ``trace_ray`` with
   the closest-mode shadow leg; default, raw, MT + Fresnel and unshadowed
-  5-bounce configurations.
+  5-bounce configurations;
+- fused_kernel's lockstep walk (``warp_fused``: the closest-mode split
+  walk, then the any-hit split walk of the shadow rays) against
+  ``fused_plain`` (t, gid and in_shadow), and its per-lane closest-walk and
+  shadow-leg counts against the per-thread ``fused_ray<TRI, true>``'s; the
+  outputs of ``fused_ray`` with either shadow leg against ``fused_plain``;
+  raw, Gram and MT, toward the scene's light;
+- closest_attrs_kernel's walk (the split walk, then ``split_attrs``)
+  against ``closest_hit_attrs_plain`` (t, gid and the 11 attributes), and
+  its per-lane counts against the per-thread ``closest_walk<TRI, true,
+  true>``'s, whose outputs are held against the plain version too.
 Skipped only where g++ is absent.
 """
 
@@ -53,7 +64,8 @@ from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.core.camera import from_euler
 from raytracer_tpu_torch.geom import rowwise
 from raytracer_tpu_torch.render import brute, packet, split_scene
-from raytracer_tpu_torch.render.split import closest_hit_plain
+from raytracer_tpu_torch.render.split import (closest_hit_attrs_plain,
+                                              closest_hit_plain, fused_plain)
 from raytracer_tpu_torch.scenes import generate_scene
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -87,6 +99,11 @@ def lib(hc, tmp_path_factory):
 
 
 @functools.lru_cache(maxsize=None)
+def _generated(which):
+    return generate_scene(which, device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
 def _scene(name):
     """(flat scene, reference LinearBVH, seeded rays o, d) on the CPU."""
     hc = _host_check()
@@ -95,11 +112,20 @@ def _scene(name):
         lin = linearize(build_bvh(flat, 3))
         camera = from_euler(fov_deg=60, aspect=4 / 3)
     else:
-        sc = generate_scene(int(name[-1]), device="cpu")
+        sc = _generated(int(name[-1]))
         flat, camera = sc.flat, sc.camera
         lin = linearize(build_bvh(flat, sc.bvh_max_depth))
     gen = torch.Generator().manual_seed(11)
     return (flat, lin) + hc.seeded_rays(camera, N_RAYS, gen)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_light(name):
+    """(split tables, light position) of the scene on the CPU."""
+    flat, lin = _scene(name)[:2]
+    light = (_host_check().TYPED_LIGHT if name == "typed"
+             else _generated(int(name[-1])).light.position)
+    return split_scene.prepare(flat, lin), light
 
 
 @pytest.mark.parametrize("use_mt,t_cull", VARIANTS)
@@ -258,3 +284,46 @@ def test_frame_trace_matches_trace_ray(scene, hc, lib):
         diffs, parked = hc.check_frame(lib, split, tab, par, cfg)
         assert not any(diffs.values()), (name, diffs)
         assert 0 < parked < n   # the consume stream has both kinds
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_fused_walk_matches_fused_plain(scene, hc, lib):
+    split, light = _split_light(scene)
+    o, d = _scene(scene)[2:]
+    eps = RenderConfig().shadow_eps
+    for tri_mode in (0, 1, 2):
+        plain = fused_plain(split, o, d, light, tri_mode, eps)
+        warp, cw, steps = hc.host_fused(lib, split, o, d, light, tri_mode,
+                                        eps)
+        assert all(torch.equal(a, b) for a, b in zip(warp, plain))
+        assert steps[1] > 0
+        # each lane's closest-walk and shadow-leg tests are those of the
+        # per-thread walk with the any-hit shadow leg
+        for how in (1, 2):
+            per_thread, ck, _ = hc.host_fused(lib, split, o, d, light,
+                                              tri_mode, eps, how)
+            assert all(torch.equal(a, b) for a, b in zip(per_thread, plain))
+            if how == 1:
+                assert torch.equal(cw, ck)
+    t, _, in_shadow = plain
+    assert bool((t < 1e30).any()) and bool((t >= 1e30).any())
+    assert bool(in_shadow.any()) and not bool(in_shadow[t < 1e30].all())
+
+
+@pytest.mark.parametrize("scene", SCENES)
+def test_attrs_walk_matches_attrs_plain(scene, hc, lib):
+    split, _ = _split_light(scene)
+    o, d = _scene(scene)[2:]
+    for tri_mode in (0, 1, 2):
+        plain = closest_hit_attrs_plain(split, o, d, tri_mode)
+        warp, cw, steps = hc.host_attrs(lib, split, o, d, tri_mode, warp=True)
+        assert all(torch.equal(a, b) for a, b in zip(warp, plain))
+        assert steps[1] > 0
+        per_thread, ck, _ = hc.host_attrs(lib, split, o, d, tri_mode)
+        assert all(torch.equal(a, b) for a, b in zip(per_thread, plain))
+        assert torch.equal(cw, ck)   # each lane's pre, node, tri tests
+    t, _, attrs = plain
+    hit = t < 1e30
+    assert bool(hit.any()) and not bool(hit.all())
+    assert bool((attrs[:, ~hit] == 0).all()) and bool((attrs[3:6, hit] > 0)
+                                                      .any())

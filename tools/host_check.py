@@ -42,13 +42,17 @@ sys.path.insert(0, str(ROOT))
 
 from raytracer_tpu_torch.accel import build_bvh, linearize  # noqa: E402
 from raytracer_tpu_torch.accel.linearize import shape_leaf_boxes  # noqa
+from raytracer_tpu_torch.config import RenderConfig  # noqa: E402
 from raytracer_tpu_torch.core.camera import camera_rays, from_euler  # noqa
 from chip_smoke import typed_scene  # noqa: E402
 from raytracer_tpu_torch.render import brute, packet, split_scene  # noqa
 from raytracer_tpu_torch.render.split import (  # noqa: E402
-    closest_hit_attrs_plain, closest_hit_plain)
+    closest_hit_attrs_plain, closest_hit_plain, fused_plain)
 from raytracer_tpu_torch.scenes import generate_scene  # noqa: E402
 
+# The default shadow offset, and the typed scene's light position.
+SHADOW_EPS = RenderConfig().shadow_eps
+TYPED_LIGHT = torch.tensor([2.0, -3.0, 1.0])
 # brute_kernel's chunk of staged runs, as csrc/raytrace.cu sets it.
 RUN_CHUNK = int(re.search(
     r"RUN_CHUNK = (\d+)", (ROOT / "raytracer_tpu_torch" / "csrc" /
@@ -216,11 +220,12 @@ static void closest_all(const rt::Tables& s, const float* o, const float* d,
   }
 }
 
-// closest_hit_kernel's split walk, 32 lanes a call (limit null: closest).
+// closest_hit_kernel's split walk, 32 lanes a call (limit null: closest);
+// attrs (closest mode): closest_attrs_kernel's 11 rows of n attributes.
 template <int TRI, bool OCC>
 static void split_all(const rt::Tables& s, const float* o, const float* d,
                       const float* limit, int n, float* t_out, float* id_out,
-                      unsigned char* occ, unsigned* counts,
+                      unsigned char* occ, float* attrs, unsigned* counts,
                       unsigned long long* steps) {
   alignas(16) static float buf[2 * rt::SPLIT_CHUNK_FLOATS];
   for (int w = 0; w < n; w += 32) {
@@ -243,17 +248,23 @@ static void split_all(const rt::Tables& s, const float* o, const float* d,
       } else {
         t_out[i] = ln[l].t;
         id_out[i] = rt::split_id(s, ln[l], rt::G_GID, rt::T_GID);
+        if (attrs) {
+          float v[3 + rt::N_MAT];
+          rt::split_attrs(s, ln[l], v);
+          for (int k = 0; k < 3 + rt::N_MAT; ++k) attrs[k * n + i] = v[k];
+        }
       }
-      counts[3 * i] = ln[l].c.pre; counts[3 * i + 1] = ln[l].c.node;
-      counts[3 * i + 2] = ln[l].c.tri;
+      put_counts(counts, i, ln[l].c);
     }
     steps[0] += wc.node; steps[1] += wc.row;
   }
 }
 
+// closest_walk with the material pointer, per thread, with its counts.
 template <int TRI>
 static void attrs_all(const rt::Tables& s, const float* o, const float* d,
-                      int n, float* t_out, float* id_out, float* attrs) {
+                      int n, float* t_out, float* id_out, float* attrs,
+                      unsigned* counts) {
   for (int i = 0; i < n; ++i) {
     rt::Ray r = rt::make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
                              d[3 * i + 1], d[3 * i + 2]);
@@ -266,6 +277,56 @@ static void attrs_all(const rt::Tables& s, const float* o, const float* d,
     for (int k = 0; k < 3; ++k) attrs[k * n + i] = a[k];
     for (int k = 0; k < rt::N_MAT; ++k)
       attrs[(3 + k) * n + i] = h.mat ? h.mat[k] : 0.0f;
+    put_counts(counts, i, c);
+  }
+}
+
+// fused_kernel's lockstep walk (how 0: warp_fused, 32 lanes a call) or,
+// per lane, fused_ray with the any-hit (1) or closest-mode (2) shadow leg;
+// counts: each ray's (pre, node, triangle) tests of its closest walk, then
+// of its shadow leg; steps: the warps' node and row steps.
+template <int TRI>
+static void fused_all(const rt::Tables& s, const float* o, const float* d,
+                      const float* light, int n, float shadow_eps, int how,
+                      float* t_out, float* id_out, unsigned char* sh_out,
+                      unsigned* counts, unsigned long long* steps) {
+  alignas(16) static float buf[2 * rt::SPLIT_CHUNK_FLOATS];
+  for (int w = 0; w < n; w += 32) {
+    rt::SplitLane ln[32];
+    rt::Counts cs[32] = {};
+    bool sh[32];
+    for (int l = 0; l < 32; ++l) {
+      int i = w + l;
+      rt::Ray r = rt::make_ray(0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f);
+      if (i < n)
+        r = rt::make_ray(o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+                         d[3 * i + 1], d[3 * i + 2]);
+      rt::split_lane_init(ln[l], s, i < n, r, rt::INF);
+    }
+    if (how == 0) {
+      rt::WarpCounts wc = {0u, 0u};
+      rt::warp_fused<HostWarp, TRI>(s, ln, light[0], light[1], light[2],
+                                    shadow_eps, sh, cs, buf, wc);
+      steps[0] += wc.node; steps[1] += wc.row;
+    }
+    for (int l = 0; l < 32 && w + l < n; ++l) {
+      int i = w + l;
+      if (how == 0) {
+        t_out[i] = ln[l].t;
+        id_out[i] = rt::split_id(s, ln[l], rt::G_GID, rt::T_GID);
+      } else if (how == 1) {
+        rt::fused_ray<TRI, true>(s, ln[l].r, light[0], light[1], light[2],
+                                 shadow_eps, ln[l].c, cs[l], t_out[i],
+                                 id_out[i], sh[l]);
+      } else {
+        rt::fused_ray<TRI, false>(s, ln[l].r, light[0], light[1], light[2],
+                                  shadow_eps, ln[l].c, cs[l], t_out[i],
+                                  id_out[i], sh[l]);
+      }
+      sh_out[i] = sh[l];
+      put_counts(counts, 2 * i, ln[l].c);
+      put_counts(counts, 2 * i + 1, cs[l]);
+    }
   }
 }
 
@@ -348,11 +409,26 @@ void h_closest_attrs(const int* ls, const int* lc, const int* sk,
                      const float* nodes, const float* pre, const float* tri,
                      int m, int n_other, int n_sph, const float* o,
                      const float* d, int n, float* t_out, float* id_out,
-                     float* attrs, int tri_mode) {
+                     float* attrs, unsigned* counts, int tri_mode) {
   rt::Tables s = {ls, lc, sk, nodes, pre, tri, m, n_other, n_sph};
-  if (tri_mode == rt::TRI_RAW) attrs_all<rt::TRI_RAW>(s, o, d, n, t_out, id_out, attrs);
-  if (tri_mode == rt::TRI_GRAM) attrs_all<rt::TRI_GRAM>(s, o, d, n, t_out, id_out, attrs);
-  if (tri_mode == rt::TRI_MT) attrs_all<rt::TRI_MT>(s, o, d, n, t_out, id_out, attrs);
+  if (tri_mode == rt::TRI_RAW) attrs_all<rt::TRI_RAW>(s, o, d, n, t_out, id_out, attrs, counts);
+  if (tri_mode == rt::TRI_GRAM) attrs_all<rt::TRI_GRAM>(s, o, d, n, t_out, id_out, attrs, counts);
+  if (tri_mode == rt::TRI_MT) attrs_all<rt::TRI_MT>(s, o, d, n, t_out, id_out, attrs, counts);
+}
+void h_fused(const int* ls, const int* lc, const int* sk, const float* nodes,
+             const float* pre, const float* tri, int m, int n_other,
+             int n_sph, const float* o, const float* d, const float* light,
+             int n, float shadow_eps, int how, float* t_out, float* id_out,
+             unsigned char* sh_out, unsigned* counts,
+             unsigned long long* steps, int tri_mode) {
+  rt::Tables s = {ls, lc, sk, nodes, pre, tri, m, n_other, n_sph};
+#define H_FUSED(TRI)                                                        \
+  fused_all<TRI>(s, o, d, light, n, shadow_eps, how, t_out, id_out, sh_out, \
+                 counts, steps)
+  if (tri_mode == rt::TRI_RAW) H_FUSED(rt::TRI_RAW);
+  if (tri_mode == rt::TRI_GRAM) H_FUSED(rt::TRI_GRAM);
+  if (tri_mode == rt::TRI_MT) H_FUSED(rt::TRI_MT);
+#undef H_FUSED
 }
 void h_closest(const int* ls, const int* lc, const int* sk, const float* nodes,
                const float* pre, const float* tri, int m, int n_other,
@@ -368,13 +444,14 @@ void h_split(const int* ls, const int* lc, const int* sk, const float* nodes,
              const float* pre, const float* tri, int m, int n_other,
              int n_sph, const float* o, const float* d, const float* limit,
              int n, float* t_out, float* id_out, unsigned char* occ,
-             unsigned* counts, unsigned long long* steps, int tri_mode) {
+             float* attrs, unsigned* counts, unsigned long long* steps,
+             int tri_mode) {
   rt::Tables s = {ls, lc, sk, nodes, pre, tri, m, n_other, n_sph};
 #define H_SPLIT(TRI)                                                        \
   if (limit) split_all<TRI, true>(s, o, d, limit, n, t_out, id_out, occ,    \
-                                  counts, steps);                           \
-  else split_all<TRI, false>(s, o, d, limit, n, t_out, id_out, occ, counts, \
-                             steps)
+                                  attrs, counts, steps);                    \
+  else split_all<TRI, false>(s, o, d, limit, n, t_out, id_out, occ, attrs,  \
+                             counts, steps)
   if (tri_mode == rt::TRI_RAW) { H_SPLIT(rt::TRI_RAW); }
   if (tri_mode == rt::TRI_GRAM) { H_SPLIT(rt::TRI_GRAM); }
   if (tri_mode == rt::TRI_MT) { H_SPLIT(rt::TRI_MT); }
@@ -513,13 +590,52 @@ def host_closest(lib, split, o, d, tri_mode, limit=None, warp=False):
     steps = torch.zeros(2, dtype=torch.int64)
     args = [*(ptr(x) for x in split.device_args()), split.m, split.n_other,
             split.n_sph, ptr(o), ptr(d), ptr(limit), n, ptr(t), ptr(ids),
-            ptr(occ), ptr(counts)]
+            ptr(occ)]
     if warp:
-        lib.h_split(*args, ptr(steps), tri_mode)
+        lib.h_split(*args, None, ptr(counts), ptr(steps), tri_mode)
     else:
-        lib.h_closest(*args, tri_mode)
+        lib.h_closest(*args, ptr(counts), tri_mode)
     out = occ if limit is not None else (t, ids.to(torch.int32))
     return (out, counts, steps.tolist()) if warp else (out, counts)
+
+
+def host_attrs(lib, split, o, d, tri_mode, warp=False):
+    """(t, gid int32, the 11 attribute rows (11, n)) of
+    closest_attrs_kernel's walk (``warp``: the split walk and
+    ``split_attrs``, 32 lanes a call) or of the per-thread
+    ``closest_walk<TRI, true, true>``, each ray's (pre-pass, node, triangle)
+    counts (n, 3) and, with ``warp``, the warps' node and row steps."""
+    n = o.shape[0]
+    t, ids, attrs = torch.empty(n), torch.empty(n), torch.empty(11, n)
+    counts = torch.zeros(n, 3, dtype=torch.int32)
+    steps = torch.zeros(2, dtype=torch.int64)
+    args = [*(ptr(x) for x in split.device_args()), split.m, split.n_other,
+            split.n_sph, ptr(o), ptr(d)]
+    if warp:
+        lib.h_split(*args, None, n, ptr(t), ptr(ids), None, ptr(attrs),
+                    ptr(counts), ptr(steps), tri_mode)
+    else:
+        lib.h_closest_attrs(*args, n, ptr(t), ptr(ids), ptr(attrs),
+                            ptr(counts), tri_mode)
+    return (t, ids.to(torch.int32), attrs), counts, steps.tolist()
+
+
+def host_fused(lib, split, o, d, light, tri_mode, shadow_eps, how=0):
+    """(t, gid int32, in_shadow bool) of fused_kernel's lockstep walk
+    (``how`` 0: ``warp_fused``, 32 lanes a call) or of the per-thread
+    ``fused_ray`` with the any-hit (1) or closest-mode (2) shadow leg; each
+    ray's tests (n, 2, 3): (pre, node, triangle) of its closest walk, then
+    of its shadow leg; and the warps' node and row steps (how 0)."""
+    n = o.shape[0]
+    t, ids = torch.empty(n), torch.empty(n)
+    sh = torch.empty(n, dtype=torch.bool)
+    counts = torch.zeros(n, 2, 3, dtype=torch.int32)
+    steps = torch.zeros(2, dtype=torch.int64)
+    lib.h_fused(*(ptr(x) for x in split.device_args()), split.m,
+                split.n_other, split.n_sph, ptr(o), ptr(d),
+                ptr(light.contiguous()), n, ctypes.c_float(shadow_eps), how,
+                ptr(t), ptr(ids), ptr(sh), ptr(counts), ptr(steps), tri_mode)
+    return (t, ids.to(torch.int32), sh), counts, steps.tolist()
 
 
 def host_brute(lib, rows, runs, counts, o, d, use_mt, gate, chunk):
@@ -591,6 +707,49 @@ def check_split(lib, split, o, d, label):
     return bad
 
 
+def check_fused(lib, split, o, d, light, shadow_eps, label):
+    """fused_kernel's lockstep walk (warp_fused) against fused_plain, and
+    each lane's closest-walk and shadow-leg tests against the per-thread
+    fused_ray<TRI, true>'s, whose outputs, and fused_ray<TRI, false>'s, are
+    held against fused_plain too; raw, Gram and MT. Returns the count of
+    differences."""
+    bad = 0
+    for tri_mode in (0, 1, 2):
+        plain = fused_plain(split, o, d, light, tri_mode, shadow_eps)
+        runs = [host_fused(lib, split, o, d, light, tri_mode, shadow_eps,
+                           how) for how in (0, 1, 2)]
+        diff = [sum(int((a != b).sum()) for a, b in zip(out, plain))
+                for out, _, _ in runs]
+        diff.append(int((runs[0][1] != runs[1][1]).any(2).any(1).sum()))
+        bad += sum(diff)
+        print(f"{label} fused walk tri mode {tri_mode}: t/gid/in_shadow of "
+              f"the warp walk, fused_ray any-hit and closest-mode, lane "
+              f"counts differ on {diff} of {o.shape[0]} rays "
+              f"({int(plain[2].sum())} in shadow)")
+    return bad
+
+
+def check_attrs(lib, split, o, d, label):
+    """closest_attrs_kernel's walk (the split walk and split_attrs) against
+    closest_hit_attrs_plain, and each lane's counts against the per-thread
+    closest_walk<TRI, true, true>'s, whose outputs are held against
+    closest_hit_attrs_plain too; raw, Gram and MT. Returns the count of
+    differences."""
+    bad = 0
+    for tri_mode in (0, 1, 2):
+        tp, gp, ap = closest_hit_attrs_plain(split, o, d, tri_mode)
+        outs, counts = zip(*(host_attrs(lib, split, o, d, tri_mode,
+                                        warp)[:2] for warp in (True, False)))
+        diff = [int(((t != tp) | (g != gp) | (a != ap).any(0)).sum())
+                for t, g, a in outs]
+        diff.append(int((counts[0] != counts[1]).any(1).sum()))
+        bad += sum(diff)
+        print(f"{label} attrs walk tri mode {tri_mode}: the warp walk, "
+              f"closest_walk with attributes, lane counts differ on {diff} "
+              f"of {o.shape[0]} rays")
+    return bad
+
+
 FRAME_W, FRAME_H = 37, 23   # partial tiles and warps; 851 = 26 x 32 + 19
 FRAME_VARIANTS = (("default", {}), ("raw", dict(use_gram_tri=False)),
                   ("mt+fresnel", dict(use_mt=True, use_fresnel=True)),
@@ -609,7 +768,7 @@ def frame_inputs(which):
         flat = typed_scene("cpu")
         lin = linearize(build_bvh(flat, 3))
         camera = from_euler(fov_deg=60, aspect=4 / 3)
-        light = Light((2.0, -3.0, 1.0), (1.0, 1.0, 1.0), 20.0)
+        light = Light(tuple(TYPED_LIGHT.tolist()), (1.0, 1.0, 1.0), 20.0)
     else:
         sc = generate_scene(which, device="cpu")
         flat, camera, light = sc.flat, sc.camera, sc.light
@@ -663,7 +822,6 @@ def check_frame(lib, split, tab, par, cfg):
 def check_frames(lib, which):
     """check_frame in every variant of FRAME_VARIANTS on scene ``which``.
     Returns the count of differences."""
-    from raytracer_tpu_torch.config import RenderConfig
     split, tab, par = frame_inputs(which)
     bad = 0
     for name, kw in FRAME_VARIANTS:
@@ -729,20 +887,9 @@ def main() -> int:
             split = split_scene.prepare(sc.flat, lin)
             bad += check_split(lib, split, o, d, f"scene {which}")
             bad += check_frames(lib, which)
-            for tri_mode in (0, 1, 2):   # closest_walk with attributes
-                tk, gk = torch.empty(o.shape[0]), torch.empty(o.shape[0])
-                ak = torch.empty(11, o.shape[0])
-                lib.h_closest_attrs(*(ptr(x) for x in split.device_args()),
-                                    split.m, split.n_other, split.n_sph,
-                                    ptr(o), ptr(d), o.shape[0], ptr(tk),
-                                    ptr(gk), ptr(ak), tri_mode)
-                tp, gp, ap = closest_hit_attrs_plain(split, o, d, tri_mode)
-                diff = [int((tk != tp).sum()),
-                        int((gk.to(torch.int32) != gp).sum()),
-                        int((ak != ap).any(0).sum())]
-                bad += sum(diff)
-                print(f"scene {which} closest_walk with attributes tri mode "
-                      f"{tri_mode}: t, gid, attributes differ on {diff}")
+            bad += check_fused(lib, split, o, d, sc.light.position,
+                               SHADOW_EPS, f"scene {which}")
+            bad += check_attrs(lib, split, o, d, f"scene {which}")
             for use_mt in (False, True):
                 for t_cull in (False, True):
                     tree = packet.make_tree(lin, sc.flat, t_cull=t_cull)
@@ -813,8 +960,25 @@ def main() -> int:
                   f"node and row steps a warp "
                   f"{[round(32 * x / po.shape[0], 1) for x in sw]}, SIMD "
                   f"efficiency {lanes / max(32 * sw[1], 1):.3f}")
+            # fused_kernel's walk on those rays, any-hit and closest-mode
+            # shadow legs
+            for how, name in ((0, "lockstep, any-hit shadow leg"),
+                              (2, "per thread, closest-mode shadow leg")):
+                _, nc, fs = host_fused(lib, split, po, pd, sc.light.position,
+                                       1, SHADOW_EPS, how)
+                per = nc.double().mean(0)
+                line = (f"scene {which} 200x150 fused walk (Gram, {name}): "
+                        f"closest-walk tests per ray "
+                        f"{[round(float(x), 1) for x in per[0]]}, shadow-leg "
+                        f"tests {[round(float(x), 1) for x in per[1]]} "
+                        "(pre, node, triangle)")
+                if how == 0:
+                    steps = [round(32 * x / po.shape[0], 1) for x in fs]
+                    simd = int(nc[:, :, 2].sum()) / max(32 * fs[1], 1)
+                    line += (f"; node and row steps a warp {steps}, SIMD "
+                             f"efficiency {simd:.3f}")
+                print(line)
             # the frame trace's work at 200x150, 3 bounces (default config)
-            from raytracer_tpu_torch.config import RenderConfig
             _, tab, par = frame_inputs(which)
             cfg = RenderConfig(width=200, height=150)
             for how, name in ((0, "lockstep, any-hit shadow leg"),
@@ -856,8 +1020,11 @@ def main() -> int:
                 else None)
             bad += check_brute(lib, rows, counts, o, d, gate,
                                f"typed scene {counts}")
-        bad += check_split(lib, split_scene.prepare(typed, typed_lin), o, d,
+        typed_split = split_scene.prepare(typed, typed_lin)
+        bad += check_split(lib, typed_split, o, d, "typed scene")
+        bad += check_fused(lib, typed_split, o, d, TYPED_LIGHT, SHADOW_EPS,
                            "typed scene")
+        bad += check_attrs(lib, typed_split, o, d, "typed scene")
         bad += check_frames(lib, "typed")
         for use_mt in (False, True):
             for t_cull in (False, True):

@@ -1,7 +1,8 @@
 """A/B timing of the port's kernels across copies of the port:
 wholeframe (raygen, emit, consume), resolve, packet, occlusion,
-closest_hit (closest and occlusion modes) and brute, of the frames that
-run them, and of the grad leg and the fit step that run closest_hit.
+closest_hit (closest and occlusion modes), fused, closest_attrs and
+brute, of the frames that run them, and of the grad leg and the fit step
+that run closest_hit.
 
     python3 tools/kernel_ab.py LABEL=DIR [LABEL=DIR ...] [--order a,b,b,a]
 
@@ -13,7 +14,10 @@ then each label of ``--order`` (default: each label once) is timed in a
 process of its own on the 800x600 primary rays of scenes 1 and 2, so that
 two versions are compared within one run, e.g. in the order a, b, b, a.
 
-A timed run checks wholeframe_kernel against ``wholeframe_plain`` (the
+A timed run checks fused_kernel and closest_attrs_kernel against
+``fused_plain`` and ``closest_hit_attrs_plain`` (4096 + 17 seeded rays in
+each triangle test, every 97th primary ray), wholeframe_kernel against
+``wholeframe_plain`` (the
 raygen frame, bounce 1 with its emitted state and the continuation on
 the re-packed sorted state, on every 97th pixel or ray), resolve_kernel
 against ``resolve_plain``,
@@ -32,13 +36,15 @@ events, ``cuda_ms``) of wholeframe_kernel (raygen on both scenes' 800x600
 frames at 3 bounces; on scene 2 also bounce 1 with emit and the
 continuation), of resolve_kernel and of ``index_select`` of the
 15-column attribute table, of packet_kernel, occlusion_kernel,
-closest_hit_kernel in both modes and brute_kernel (gate on, as the brute
+closest_hit_kernel in both modes, fused_kernel and closest_attrs_kernel
+(with the bound of their counts) and brute_kernel (gate on, as the brute
 renderer runs it), their counts where the copy's kernels give them
 (packet_kernel's and closest_hit_kernel's warp steps and SIMD efficiency,
 brute_kernel's gate and row tests; wholeframe_kernel's tests and, where
 it walks in lockstep, its and occlusion_kernel's warp steps), the call
-ms and device busy ms of the one-launch, hybrid (``sort_bounces``) and
-packet + occlusion frames, the brute renderer's frame (call ms),
+ms and device busy ms of the one-launch, hybrid (``sort_bounces``),
+packet + occlusion, per-bounce (``wholeframe.USE_WHOLEFRAME`` off) and
+``split.USE_KERNEL_ATTRS`` frames, the brute renderer's frame (call ms),
 the grad leg and the fit step on scene 1 (``time_fit``), and the
 registers and spills of the kernels. The timers are those of this checkout's
 chip_smoke.py, whatever the copy holds. The card's name and power limit
@@ -54,7 +60,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESOLVE_CALLS, PACKET_CALLS, REPEATS = 50, 10, 3
 FIT_CALLS, FIT_W, FIT_H = 5, 800, 600
 KERNELS = ("wholeframe", "resolve", "packet_kernel", "occlusion",
-           "closest_hit", "brute_kernel")
+           "closest_hit", "brute_kernel", "fused", "closest_attrs")
 
 
 def smoke():
@@ -166,6 +172,7 @@ def time_one(label, root):
                                         stats=st), dev, True)
         ok &= time_split(r, cs, split, (o, d), (lo, ld, dist), oq, dq,
                          closest_hit, closest_hit_plain)
+        ok &= time_fused_attrs(r, cs, split, sc.light.position, o, d, oq, dq)
         ok &= time_brute(r, cs, brute, sc, lin, shape_leaf_boxes, o, d, oq,
                          dq, RenderConfig())
         if which == 1:
@@ -203,8 +210,9 @@ def time_frames(r, cs, wf, packet, sc, lin, split, tab, cfg, which):
     sorted state (the hybrid's launches), each bit-exact against
     wholeframe_plain on every 97th pixel or ray; device and call ms, tests
     and warp steps. Then the call ms and device busy ms of the one-launch,
-    hybrid and packet + occlusion frames."""
+    hybrid, packet + occlusion, per-bounce and USE_KERNEL_ATTRS frames."""
     import torch
+    from raytracer_tpu_torch.render import split as split_mod
     from raytracer_tpu_torch.render.split import render
     par = wf.make_params(sc.camera, sc.light)
     dev = par.device
@@ -249,15 +257,23 @@ def time_frames(r, cs, wf, packet, sc, lin, split, tab, cfg, which):
                                  split=split),
         "packet_occlusion": lambda: packet.render(sc.flat, lin, sc.camera,
                                                   sc.light, cfg)}
+    # render() under a switch: the per-bounce route (fused_kernel and
+    # resolve_kernel a bounce) and its USE_KERNEL_ATTRS variant
+    # (closest_attrs_kernel, closest_hit_kernel for the shadow rays)
+    frames["per_bounce"] = frames["kernel_attrs"] = frames["one_launch"]
     packet.USE_OCCLUSION = True
     try:
         for name, fn in frames.items():
+            wf.USE_WHOLEFRAME = name != "per_bounce"
+            split_mod.USE_KERNEL_ATTRS = name == "kernel_attrs"
             fn()
             r[f"frame_{name}_call_ms"] = [cs.cuda_ms(fn, PACKET_CALLS)
                                           for _ in range(REPEATS)]
             r[f"frame_{name}_device_busy_ms"] = cs.device_busy_ms(fn)[0]
     finally:
         packet.USE_OCCLUSION = False
+        wf.USE_WHOLEFRAME = True
+        split_mod.USE_KERNEL_ATTRS = False
     return bool(ok)
 
 
@@ -291,6 +307,53 @@ def time_split(r, cs, split, primary, light, oq, dq, closest_hit,
         r[f"{name}_call_ms"] = [cs.cuda_ms(run, PACKET_CALLS)
                                 for _ in range(REPEATS)]
         r[f"{name}_tests"] = lane_and_warp_counts(run, o.device)
+    return ok
+
+
+def time_fused_attrs(r, cs, split, light, o, d, oq, dq):
+    """fused_kernel and closest_attrs_kernel: bit-exact on the seeded rays
+    (3 triangle tests) and on every 97th primary ray; the device and call
+    ms on the primary rays (Gram), their counts where the copy gives them
+    (the lanes' tests, and the warps' steps where the kernel walks in
+    lockstep), and the bound of those counts (chip_smoke.py's bound_ms:
+    fused_kernel's shadow leg counted as the copy walks it)."""
+    import torch
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.render.split import (closest_hit_attrs,
+                                                  closest_hit_attrs_plain,
+                                                  fused, fused_plain)
+    eps = RenderConfig().shadow_eps
+    ok = True
+    for mode in (0, 1, 2):
+        ok &= all(torch.equal(a, b) for a, b in zip(
+            fused(split, oq, dq, light, mode, eps),
+            fused_plain(split, oq, dq, light, mode, eps)))
+        ok &= all(torch.equal(a, b) for a, b in zip(
+            closest_hit_attrs(split, oq, dq, mode),
+            closest_hit_attrs_plain(split, oq, dq, mode)))
+    n = o.shape[0]
+    sub = torch.arange(0, n, 97, device=o.device)
+    tables = cs.table_bytes(split)
+    runs = {
+        "fused": (lambda st=None: fused(split, o, d, light, 1, eps, stats=st),
+                  lambda: fused_plain(split, o[sub], d[sub], light, 1, eps),
+                  n * 9, tables + n * 24 + 12, 0),
+        "closest_attrs": (
+            lambda st=None: closest_hit_attrs(split, o, d, 1, stats=st),
+            lambda: closest_hit_attrs_plain(split, o[sub], d[sub], 1),
+            n * 52, tables + n * 24, n * cs.OPS_RESOLVE)}
+    for name, (run, plain, out_b, in_b, extra) in runs.items():
+        got = run()
+        ok &= all(torch.equal(a[..., sub], b) for a, b in zip(got, plain()))
+        r[f"{name}_device_ms"] = [cs.device_ms(run, PACKET_CALLS)
+                                  for _ in range(REPEATS)]
+        r[f"{name}_call_ms"] = [cs.cuda_ms(run, PACKET_CALLS)
+                                for _ in range(REPEATS)]
+        counts = lane_and_warp_counts(run, o.device)
+        counts["bound_ms"] = cs.bound_ms(
+            torch.tensor(counts["tests"]), split, out_bytes=out_b,
+            in_bytes=in_b, extra_ops=extra)[0]
+        r[f"{name}_tests"] = counts
     return ok
 
 
