@@ -20,8 +20,16 @@ whose frames are held against the wavefront's; the USE_KERNEL_ATTRS
 route of scenes 1 and 2, held against the per-bounce frame; the
 differentiable route (render(differentiable=True)) of scene 1 with the
 loss and gradients of bench.py's grad leg, held against the same
-gradients through the plain closest hit; and 5 steps of
-diff.fit_scene_params through diff.make_kernel_renderer. It times each
+gradients through the plain closest hit; 5 steps of
+diff.fit_scene_params through diff.make_kernel_renderer; and the animated
+frame loop (render/dynamic.py, phases 6-6d): the LBVH rebuilt on the card
+from animated scenes 1 and 2, equal to the CPU build with no host sync
+from the animation to the packet tree, packet_kernel and
+occlusion_kernel over it bit for bit, the animated split streams (scene
+1 bouncing through the one-launch frame, scene 2's wheels through the
+sort_bounces hybrid) timed over 20 chained frames with frame 5 held
+against a static render, and the "pallas" frames (LBVH rebuild + packet
+renderer) timed and held against the wavefront frame. It times each
 kernel on the main paths' inputs by CUDA events over back-to-back calls
 (the call, which holds the host's issue time where that is longer) and by
 torch.profiler (the device), closest_hit_kernel on both scenes' primary
@@ -110,6 +118,14 @@ KERNEL_ATTRS_MAX_FRACTION = 1e-4
 # sum in any order).
 GRAD_RTOL_OF_MAX = 1e-4
 FIT_STEPS, FIT_LR = 5, 4.0
+# The animated streams (phases 6-6d): a frame's delta time; the animated
+# states that phase 6 rebuilds the LBVH of (scene 1's spheres bounced to
+# ANIM_T, scene 2's wheels turned ANIM_FRAMES frames).
+FRAME_DT = 1 / 30
+ANIM_T, ANIM_FRAMES = 0.7, 5
+# Calls a timing of the host-bound LBVH build and "pallas" frames (~45-100
+# ms each on the H100's host).
+SLOW_REPS = 5
 
 
 def log(msg):
@@ -1396,6 +1412,24 @@ def main() -> int:
     for k, v in lockstep.items():
         log(f"lockstep walks: {k}: {fmt_steps(v)}")
 
+    # -- phases 6-6d: the animated frame loop (render/dynamic.py) -----------
+    # last: in a run where these phases came before the timing section,
+    # every profiler window after them recorded no device ms
+    animated = animated_paths(scenes, cfg, dev, gen, reset, read, names)
+    held["packet_kernel"].append(
+        f"phase 6b: {N_RAYS + 17} seeded rays over the LBVH trees of the "
+        "animated scenes 1 and 2 (t_cull on): bit-exact; phase 6d: the "
+        f"pallas frames at {CHECK_W}x{CHECK_H} against the wavefront frame "
+        "of the same LBVH")
+    held["occlusion_kernel"].append(
+        f"phase 6b: {N_RAYS + 17} seeded rays over the LBVH trees of the "
+        "animated scenes 1 and 2 (t_cull on): bit-exact")
+    held["wholeframe_kernel"].append(
+        "phase 6c: frame 5 of the animated split streams of scenes 1 and 2 "
+        "against a static render of the same scene (pixels over 1e-4 under "
+        "0.5%, median at most 1e-6)")
+    log(f"all paths: launches {total}, wholeframe_kernel by mode {by_mode}")
+
     rows = [
         dict(name="wholeframe_kernel", route="cuda",
              source="raytracer_tpu_torch/csrc/raytrace.cu",
@@ -1459,6 +1493,15 @@ def main() -> int:
             held_by=held[name]))
         if "bound_ms_every_row" in top:
             rows[-1]["bound_ms_every_row"] = top["bound_ms_every_row"]
+    for name in ("packet_kernel", "occlusion_kernel"):
+        rows[-3 if name == "packet_kernel" else -2]["lbvh"] = {
+            str(k): v for k, v in animated["kernels"][name].items()}
+    rows[-3]["lbvh_build"] = {str(k): v
+                              for k, v in animated["build"].items()}
+    rows[-3]["animated_pallas_frames"] = {
+        str(k): v for k, v in animated["pallas"].items()}
+    rows[0]["animated_split_streams"] = {
+        str(k): v for k, v in animated["streams"].items()}
     rows[-3]["frame_ms"] = {str(k): v for k, v in alt_ms.items()}
     rows[-3]["frames_vs_wavefront_and_one_launch"] = alt_err
     rows[-3]["frame_device_idle"] = idle
@@ -1484,6 +1527,372 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def animated_paths(scenes, cfg, dev, gen, reset, read, names):
+    """Phases 6-6d, the animated frame loop (render/dynamic.py). 6: the
+    LBVH rebuilt on the card from the animated states of scenes 1 and 2
+    (scene 1's spheres bounced to ANIM_T, scene 2's wheels turned
+    ANIM_FRAMES times) equals the same build on the CPU table for table,
+    and the animation, the build, the cull flags and make_tree make no
+    host sync (sync debug mode "error"); the build's ms and launches. 6b:
+    packet_kernel and occlusion_kernel over both LBVH trees bit for bit
+    against their plain versions on seeded rays, then timed on the
+    frame's primary rays and the light rays of their hits. 6c: the
+    animated "split" streams at full width, 20 chained frames: scene 1's
+    bounce through the one-launch frame, scene 2's wheels through
+    update_dynamic and the sort_bounces hybrid; launches a frame, idle
+    share, syncs a frame, and frame 5 against a static render of the same
+    scene. 6d: the "pallas" frames (LBVH rebuild + packet renderer) timed
+    with the rebuild's share, and at CHECK_W x CHECK_H held against the
+    "wavefront" frame of the same tree. Returns the numbers for the
+    kernels line."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from raytracer_tpu_torch.accel import build_bvh, linearize, refit_grow
+    from raytracer_tpu_torch.accel.lbvh import (build_lbvh,
+                                                node_cullable_flags_device)
+    from raytracer_tpu_torch.anim.animation import (bounce_spheres,
+                                                    device_bounce,
+                                                    device_wheels,
+                                                    rotate_wheels)
+    from raytracer_tpu_torch.core import camera as cam_ops
+    from raytracer_tpu_torch.core.scene import WALL
+    from raytracer_tpu_torch.geom.aabb import (shape_aabbs_device,
+                                               shape_centers_device)
+    from raytracer_tpu_torch.geom.direct import INF, wall_basis
+    from raytracer_tpu_torch.render import dynamic, packet
+    from raytracer_tpu_torch.render.split import render
+
+    out = dict(build={}, kernels={"packet_kernel": {},
+                                  "occlusion_kernel": {}},
+               streams={}, pallas={})
+    lin_fields = ("bounds", "leaf_start", "leaf_count", "skip", "perm")
+
+    def no_sync(fn):
+        """fn() under sync debug mode "error": a host sync raises."""
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def syncs(fn):
+        """The host syncs that fn() makes (sync debug mode "warn")."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    # the sync debug mode sees a host sync: .item() raises under "error"
+    # and warns under "warn"
+    probe = torch.ones(1, device=dev)
+    try:
+        no_sync(probe.item)
+        raised = False
+    except RuntimeError:
+        raised = True
+    check(raised and syncs(probe.item) >= 1,
+          "torch.cuda.set_sync_debug_mode does not see a host sync")
+
+    # -- phase 6: the LBVH on the card against the CPU build --------------
+    t0 = time.perf_counter()
+    lbvh_trees = {}
+    for which in (1, 2):
+        sc = scenes[which][0]
+        bounce = (device_bounce(sc.bounce_params, dev)
+                  if sc.bounce_params else None)
+        wheels = device_wheels(sc.wheels, dev)
+
+        def animate(flat):
+            if bounce is not None:
+                return bounce_spheres(flat, bounce, ANIM_T)
+            for _ in range(ANIM_FRAMES):
+                flat = rotate_wheels(flat, wheels, FRAME_DT)
+            return flat
+
+        def rebuild():
+            flat = animate(sc.flat)
+            inputs = (*shape_aabbs_device(flat), shape_centers_device(flat))
+            lin = build_lbvh(*inputs)
+            _, _, w_deg = wall_basis(flat.plane_normal)
+            mask = w_deg & (flat.shape_type == WALL)
+            flags = node_cullable_flags_device(lin, mask)
+            return (flat, inputs, mask, lin, flags,
+                    packet.make_tree(lin, flat, cull_flags=flags))
+
+        rebuild()   # the first call makes the cached device constants
+        flat, inputs, mask, lin, flags, tree = no_sync(rebuild)
+        torch.cuda.synchronize()
+        lin_c = build_lbvh(*(x.cpu() for x in inputs))
+        flags_c = node_cullable_flags_device(lin_c, mask.cpu())
+        same = [f for f in lin_fields
+                if not torch.equal(getattr(lin, f).cpu(), getattr(lin_c, f))]
+        check(not same and torch.equal(flags.cpu(), flags_c),
+              f"scene {which}: the LBVH built on the card differs from the "
+              f"CPU build in {same or 'the cull flags'}")
+        check(lin.num_nodes == 2 * flat.num_shapes - 1
+              and int(tree.leaf_count.sum()) == flat.num_shapes,
+              "the LBVH is not 2n - 1 nodes of one-shape leaves")
+
+        def build():
+            return build_lbvh(*inputs)
+        ms = cuda_ms(build, SLOW_REPS)
+        issue_ms = host_ms(build, SLOW_REPS)
+        times = kernel_times(build)
+        launches = sum(c for _, _, c in times) if times else None
+        busy = sum(t for _, t, _ in times) if times else None
+        whole_ms = cuda_ms(rebuild, SLOW_REPS)
+        out["build"][which] = dict(
+            nodes=lin.num_nodes, ms=ms, host_issue_ms=issue_ms,
+            device_busy_ms=busy, launches=launches,
+            animate_build_flags_tree_ms=whole_ms,
+            cullable_nodes=int(flags.sum()))
+        log(f"phase 6: scene {which} LBVH of {flat.num_shapes} shapes "
+            f"({lin.num_nodes} nodes, {int(flags.sum())} cullable) built "
+            "on the card under sync debug mode 'error' (animation, AABBs, "
+            "centres, build, cull flags, make_tree): equal to the CPU build "
+            f"table for table; build {ms:.3f} ms a call ({SLOW_REPS} "
+            f"builds, CUDA events), host issue {issue_ms:.3f} ms, "
+            f"{launches if launches is not None else 'not measured'} "
+            f"launches, device busy {fmt(busy)}; animation + build + flags "
+            f"+ tree {whole_ms:.3f} ms")
+        lbvh_trees[which] = (flat, lin, tree)
+    log(f"phase 6 done in {time.perf_counter() - t0:.1f}s")
+
+    # -- phase 6b: packet_kernel and occlusion_kernel over the LBVH trees --
+    t0 = time.perf_counter()
+    n_q = N_RAYS + 17   # a partial block and warp
+    for which, (flat, lin, tree) in lbvh_trees.items():
+        sc = scenes[which][0]
+        o, d = query_rays(cam_ops, sc.camera, gen, dev, n_q)
+        u = torch.rand(n_q, generator=gen).to(dev)
+        tk, rk = packet.packet_hit(tree, o, d, cfg.use_mt, True)
+        (tp, rp), p_ms = timed_once(lambda: packet.packet_plain(
+            tree, o, d, cfg.use_mt, True))
+        limit = torch.where(tp < INF, tp * (0.5 + u), 100 * u)
+        limit[:8], limit[8:16] = float("inf"), float("nan")
+        ok_ = packet.occlusion(tree, o, d, limit, cfg.use_mt, True)
+        op_, o_ms = timed_once(lambda: packet.occlusion_plain(
+            tree, o, d, limit, cfg.use_mt, True))
+        log(f"phase 6b: scene {which} LBVH: packet {int((tp < INF).sum())} "
+            f"hits, t differs on {int((tk != tp).sum())}, row on "
+            f"{int((rk != rp).sum())}; occlusion {int(op_.sum())} occluded, "
+            f"differs on {int((ok_ != op_).sum())} of {n_q} rays")
+        check(torch.equal(tk, tp) and torch.equal(rk, rp)
+              and torch.equal(ok_, op_),
+              "packet/occlusion kernel disagrees with its plain version on "
+              "the LBVH")
+        # timing: the frame's primary rays, the light rays of their hits
+        o_f, d_f = cam_ops.camera_rays(sc.camera, FRAME_W, FRAME_H)
+        o_f, d_f = o_f.reshape(-1, 3).contiguous(), d_f.reshape(-1, 3)\
+            .contiguous()
+        t_f, _ = packet.packet_hit(tree, o_f, d_f, cfg.use_mt, True)
+        hit = t_f < INF
+        p = (o_f + (t_f - 1e-3)[:, None] * d_f)[hit]
+        to_light = sc.light.position - p
+        dist = to_light.norm(dim=1)
+        lit_o = p.contiguous()
+        lit_d = (to_light / dist[:, None]).contiguous()
+        tbytes = sum(x.numel() * x.element_size() for x in (
+            tree.leaf_start, tree.leaf_count, tree.skip, tree.nodes,
+            tree.rows))
+        runs = {
+            "packet_kernel": (
+                lambda st=None: packet.packet_hit(tree, o_f, d_f, cfg.use_mt,
+                                                  True, stats=st),
+                o_f.shape[0], tbytes + o_f.shape[0] * 24,
+                o_f.shape[0] * 8, p_ms),
+            "occlusion_kernel": (
+                lambda st=None: packet.occlusion(tree, lit_o, lit_d, dist,
+                                                 cfg.use_mt, True, stats=st),
+                lit_o.shape[0], tbytes + lit_o.shape[0] * 28,
+                lit_o.shape[0], o_ms)}
+        for name, (run, n, in_b, out_b, plain_ms) in runs.items():
+            ms = cuda_ms(run, TIMED_FRAMES)
+            dms = device_ms(run, TIMED_FRAMES)
+            st5 = torch.zeros(5, dtype=torch.int64, device=dev)
+            run(st5)
+            other, node, tri, w_node, w_row = st5.tolist()
+            ops = (other * row_ops_other(flat) + node * OPS_NODE_CULL
+                   + tri * OPS_ROW[3])
+            bound, by = bound_of(in_bytes=in_b, out_bytes=out_b, ops=ops)
+            tests = dict(other_rows=other, nodes=node, triangles=tri,
+                         warp_node_steps=w_node, warp_row_steps=w_row,
+                         **warp_steps(st5, -(-n // 32), other + tri))
+            out["kernels"][name][which] = dict(
+                tree=f"LBVH of the animated scene, {lin.num_nodes} nodes",
+                ms=ms, device_ms=dms, plain_ms=plain_ms, plain_rays=n_q,
+                rays=n, bound_ms=bound, bound_by=by, tests=tests)
+            log(f"phase 6b: scene {which} {name} on the LBVH: {ms:.3f} ms "
+                f"(device {fmt(dms)}) on {n} rays, plain {plain_ms:.1f} ms "
+                f"on {n_q}; bound {bound:.4f} ms ({by}); {fmt_steps(tests)}")
+    log(f"phase 6b done in {time.perf_counter() - t0:.1f}s")
+
+    # -- phase 6c: the animated "split" streams at full width --------------
+    streams = ((1, "bounce, one-launch", cfg, 1),
+               (2, "wheels, sort_bounces hybrid",
+                cfg.replace(sort_bounces=True), 2))
+    for which, label, c, per_frame in streams:
+        t0 = time.perf_counter()
+        sc = scenes[which][0]
+        frame = dynamic.make_frame_fn(sc, c, renderer="split")
+        frame(sc.flat, sc.camera, sc.light, 0.0, FRAME_DT)   # warm-up
+        no_sync(lambda: frame.update(sc.flat, FRAME_DT, FRAME_DT))
+        n_sync = syncs(lambda: frame(sc.flat, sc.camera, sc.light, FRAME_DT,
+                                     FRAME_DT))
+
+        def chain(count):
+            cur = sc.flat
+            for k in range(count):
+                img, cur = frame(cur, sc.camera, sc.light, k * FRAME_DT,
+                                 FRAME_DT)
+            return img, cur
+        reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        chain(TIMED_FRAMES)
+        end.record()
+        torch.cuda.synchronize()
+        got = read()
+        ms = start.elapsed_time(end) / TIMED_FRAMES
+        want = {k: 0 for k in names}
+        want["wholeframe_kernel"] = per_frame * TIMED_FRAMES
+        check(got == want, f"the {label} stream launched {got}, not {want}")
+        busy, ours = device_busy_ms(lambda: frame(
+            sc.flat, sc.camera, sc.light, FRAME_DT, FRAME_DT))
+        update_ms = cuda_ms(lambda: frame.update(sc.flat, FRAME_DT,
+                                                 FRAME_DT), TIMED_FRAMES)
+        # frame 5 against a static render of the same scene: scene 1 over
+        # the grow-refit of the reference tree, scene 2 a fresh prepare
+        img5, flat5 = chain(6)
+        if which == 1:
+            ref_lin = linearize(refit_grow(build_bvh(
+                sc.flat, sc.bvh_max_depth), flat5))
+        else:
+            ref_lin = linearize(build_bvh(flat5, sc.bvh_max_depth))
+        ref = render(flat5, ref_lin, sc.camera, sc.light, c)
+        diff = (img5 - ref).abs().amax(-1)
+        share = (diff > 1e-4).float().mean().item()
+        median = float(np.median(diff.cpu().numpy()))
+        moved = (img5 - frame(sc.flat, sc.camera, sc.light, 0.0,
+                              FRAME_DT)[0]).abs().max().item()
+        out["streams"][which] = dict(
+            stream=label, frame_ms=ms, fps=1000 / ms,
+            update_ms=update_ms, device_busy_ms=busy, csrc_kernels_ms=ours,
+            idle_share=None if busy is None else 1 - busy / ms,
+            launches_per_frame=per_frame, host_syncs_per_frame=n_sync,
+            frame5_share_over_1e4=share, frame5_median_abs=median)
+        log(f"phase 6c: scene {which} {label} {FRAME_W}x{FRAME_H}x"
+            f"{BOUNCES}: {ms:.3f} ms a frame over {TIMED_FRAMES} chained "
+            f"frames ({1000 / ms:.1f} FPS), launches {got}; animation + "
+            f"refresh {update_ms:.3f} ms, no host sync (sync debug mode "
+            f"'error'); {n_sync} host syncs a frame (the render's; 'warn' "
+            "mode); kernels busy the card "
+            + ("(not measured)" if busy is None else
+               f"{busy:.3f} ms ({ours:.3f} in csrc kernels), idle share "
+               f"{1 - busy / ms:.3f}")
+            + f"; frame 5 against a static render: {share:.5f} of pixels "
+            f"> 1e-4, median {median:.3g}, moved {moved:.3g} from frame 0; "
+            f"{time.perf_counter() - t0:.1f}s")
+        check(bool(torch.isfinite(img5).all()) and share < 0.005
+              and median <= 1e-6 and moved > 1e-3,
+              f"the {label} stream's frame 5 differs from the static render")
+
+    # -- phase 6d: the "pallas" frames (LBVH rebuild + packet renderer) ----
+    small = cfg.replace(width=CHECK_W, height=CHECK_H)
+    for which in (1, 2):
+        t0 = time.perf_counter()
+        sc = scenes[which][0]
+        frame = dynamic.make_frame_fn(sc, cfg, renderer="pallas")
+        frame(sc.flat, sc.camera, sc.light, 0.0, FRAME_DT)   # warm-up
+        res = {}
+        for label, occl, launched in (
+                ("pallas", False, {"packet_kernel": 2 * BOUNCES}),
+                ("pallas, USE_OCCLUSION", True,
+                 {"packet_kernel": BOUNCES, "occlusion_kernel": BOUNCES})):
+            packet.USE_OCCLUSION = occl
+            try:
+                reset()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                cur = sc.flat
+                for k in range(SLOW_REPS):
+                    img, cur = frame(cur, sc.camera, sc.light, k * FRAME_DT,
+                                     FRAME_DT)
+                end.record()
+                torch.cuda.synchronize()
+                got = read()
+                ms = start.elapsed_time(end) / SLOW_REPS
+                busy, ours = device_busy_ms(lambda: frame(
+                    sc.flat, sc.camera, sc.light, FRAME_DT, FRAME_DT))
+                n_sync = syncs(lambda: frame(sc.flat, sc.camera, sc.light,
+                                             FRAME_DT, FRAME_DT))
+            finally:
+                packet.USE_OCCLUSION = False
+            want = {k: launched.get(k, 0) * SLOW_REPS for k in names}
+            check(got == want, f"the {label} frame launched {got}, not "
+                  f"{want}")
+            check(bool(torch.isfinite(img).all()) and img.std().item() > 1e-3,
+                  f"the {label} frame is not finite or constant")
+            res[label] = dict(frame_ms=ms, device_busy_ms=busy,
+                              csrc_kernels_ms=ours,
+                              host_syncs_per_frame=n_sync,
+                              idle_share=None if busy is None
+                              else 1 - busy / ms)
+        update_ms = cuda_ms(lambda: frame.update(sc.flat, FRAME_DT,
+                                                 FRAME_DT), SLOW_REPS)
+        p_frame = dynamic.make_frame_fn(sc, small, renderer="pallas")
+        w_frame = dynamic.make_frame_fn(
+            sc, small.replace(ray_chunk=CHECK_W * CHECK_H),
+            renderer="wavefront")
+        ip, _ = p_frame(sc.flat, sc.camera, sc.light, 0.5, FRAME_DT)
+        iw, _ = w_frame(sc.flat, sc.camera, sc.light, 0.5, FRAME_DT)
+        vs_wave = (ip - iw).abs().max().item()
+        out["pallas"][which] = dict(
+            **res, lbvh_update_ms=update_ms,
+            lbvh_share=update_ms / res["pallas"]["frame_ms"],
+            max_abs_vs_wavefront_small=vs_wave)
+        log(f"phase 6d: scene {which} pallas {FRAME_W}x{FRAME_H}x{BOUNCES}: "
+            + ", ".join(f"{k} {v['frame_ms']:.3f} ms a frame over "
+                        f"{SLOW_REPS} chained frames (idle share "
+                        + ("not measured" if v["idle_share"] is None else
+                           f"{v['idle_share']:.3f}")
+                        + f", {v['host_syncs_per_frame']} host syncs)"
+                        for k, v in res.items())
+            + f"; animation + LBVH + flags {update_ms:.3f} ms "
+            f"({update_ms / res['pallas']['frame_ms']:.3f} of the frame); "
+            f"at {CHECK_W}x{CHECK_H} max-abs {vs_wave:.3g} against the "
+            f"wavefront frame (bar {PACKET_ATOL:g}); "
+            f"{time.perf_counter() - t0:.1f}s")
+        check(bool(torch.isfinite(ip).all()) and vs_wave <= PACKET_ATOL,
+              "the pallas frame differs from the wavefront frame")
+    return out
+
+
+def timed_once(fn):
+    """(fn(), its ms by CUDA events): one call."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return result, start.elapsed_time(end)
 
 
 def pixel_rays(cam_ops, camera, pix):

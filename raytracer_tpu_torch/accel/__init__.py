@@ -1,4 +1,4 @@
-from raytracer_tpu_torch.accel.bvh import BVH, build_bvh
+from raytracer_tpu_torch.accel.bvh import BVH, build_bvh, refit_grow
 from raytracer_tpu_torch.accel.linearize import LinearBVH, linearize
 
-__all__ = ["BVH", "build_bvh", "LinearBVH", "linearize"]
+__all__ = ["BVH", "build_bvh", "refit_grow", "LinearBVH", "linearize"]

@@ -13,11 +13,11 @@ the Python builder, whose output is identical.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
-from raytracer_tpu_torch.core.scene import FlatScene
+from raytracer_tpu_torch.core.scene import FlatScene, to_numpy
 from raytracer_tpu_torch.geom.aabb import shape_aabbs, shape_centers
 
 
@@ -123,4 +123,35 @@ def build_bvh(scene: FlatScene, max_depth: int = 15,
         if n.left == -1:
             indices.extend(n.idx.tolist())
     bvh.indices = np.asarray(indices, np.int32)
+    return bvh
+
+
+def refit_grow(bvh: BVH, scene: FlatScene,
+               animated_mask: Optional[np.ndarray] = None) -> BVH:
+    """updateBVH (main.cpp:1068-1077): every node containing an animated
+    shape GROWS its box to include that shape's current AABB; boxes never
+    shrink. Mutates and returns ``bvh`` (host numpy, as the build)."""
+    if animated_mask is None:
+        animated_mask = to_numpy(scene.animated)
+    mins, maxs = shape_aabbs(scene)
+    # the whole (node, member) incidence at once: node_shapes flattened,
+    # the animated members kept, their AABBs min/max-reduced per node
+    n_nodes = len(bvh.node_shapes)
+    counts = np.fromiter((len(ix) for ix in bvh.node_shapes),
+                         np.int64, n_nodes)
+    if counts.sum() == 0:
+        return bvh
+    flat_idx = np.concatenate([np.asarray(ix, np.int64)
+                               for ix in bvh.node_shapes])
+    owner = np.repeat(np.arange(n_nodes), counts)
+    sel = animated_mask[flat_idx]
+    if sel.any():
+        own = owner[sel]
+        mem = flat_idx[sel]
+        grow_min = np.full((n_nodes, 3), np.inf, np.float32)
+        grow_max = np.full((n_nodes, 3), -np.inf, np.float32)
+        np.minimum.at(grow_min, own, mins[mem])
+        np.maximum.at(grow_max, own, maxs[mem])
+        bvh.bounds_min = np.minimum(bvh.bounds_min, grow_min)
+        bvh.bounds_max = np.maximum(bvh.bounds_max, grow_max)
     return bvh

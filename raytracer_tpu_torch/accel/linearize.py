@@ -20,7 +20,9 @@ from raytracer_tpu_torch.accel.bvh import BVH
 
 @dataclasses.dataclass
 class LinearBVH:
-    """Host (CPU) tensors for skip-pointer traversal; M nodes, DFS order."""
+    """Tensors for skip-pointer traversal; M nodes, DFS order. ``linearize``
+    returns them on the host; ``accel/lbvh.py::build_lbvh`` builds them on
+    its inputs' device."""
 
     bounds: torch.Tensor      # (M, 6) f32: bmin xyz, bmax xyz
     leaf_start: torch.Tensor  # (M,) i32: offset into perm (leaves), else 0

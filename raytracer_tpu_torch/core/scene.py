@@ -84,6 +84,29 @@ class FlatScene:
     def replace(self, **kw) -> "FlatScene":
         return dataclasses.replace(self, **kw)
 
+    def pad_to(self, n: int, pad_type: int = SPHERE) -> "FlatScene":
+        """Pad to n shapes with inert entries: zero-radius spheres at the
+        origin never give an INNER hit (the discriminant (2 d.oc)^2 -
+        4|d|^2|oc|^2 <= 0 by Cauchy-Schwarz, and the reference requires
+        D > 0 strictly, sphere.hpp:48-50). Other fields are zero."""
+        cur = self.num_shapes
+        if n < cur:
+            raise ValueError(f"pad_to({n}) below current size {cur}")
+        if n == cur:
+            return self
+        out = {}
+        for f in _FIELDS:
+            x = getattr(self, f)
+            out[f] = torch.cat([x, x.new_zeros((n - cur,) + x.shape[1:])])
+        out["shape_type"][cur:] = pad_type
+        return FlatScene(**out)
+
+    def take(self, idx) -> "FlatScene":
+        """Gather shapes by index (reorders / slices every field)."""
+        idx = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+        return FlatScene(**{f: getattr(self, f).index_select(0, idx)
+                            for f in _FIELDS})
+
     def to(self, device) -> "FlatScene":
         return FlatScene(**{f: getattr(self, f).to(device) for f in _FIELDS})
 
@@ -268,6 +291,31 @@ class SceneBuilder:
         if animated:
             self.animated_indices.extend(ids)
         return ids
+
+    def set_material(self, idx: int, material: Material):
+        """Replace shape ``idx``'s material before ``build``."""
+        vals = {
+            "mat_color": np.asarray(material.color, np.float32),
+            "mat_fresnel": float(material.fresnel),
+            "mat_ambient": float(material.ambient),
+            "mat_diffuse": float(material.diffuse),
+            "mat_specular": float(material.specular),
+            "mat_shininess": float(material.shininess),
+        }
+        pos = 0
+        for row in self._rows:
+            if isinstance(row, _BulkRows):
+                if pos <= idx < pos + row.count:
+                    for k, v in vals.items():
+                        row.cols[k][idx - pos] = v
+                    return
+                pos += row.count
+            else:
+                if pos == idx:
+                    row.update(vals)
+                    return
+                pos += 1
+        raise IndexError(idx)
 
     def build(self, device=None) -> FlatScene:
         n = self._n

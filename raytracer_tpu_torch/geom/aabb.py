@@ -1,8 +1,9 @@
 """AABB helpers (port of ``raytracer_tpu/geom/aabb.py``, reference
 src/BoundingBox.hpp): ``shape_aabbs`` and ``shape_centers`` in numpy on
-the host for the BVH build, and ``wall_end_device`` / ``shape_aabbs_device``
-as tensor code on the tensors' device for the per-step table refresh
-(``wall_end_jnp`` / ``shape_aabbs_jnp``).
+the host for the BVH build, and ``wall_end_device``, ``shape_aabbs_device``
+and ``shape_centers_device`` as tensor code on the tensors' device for the
+per-step table refresh and the per-frame LBVH rebuild (``wall_end_jnp``,
+``shape_aabbs_jnp``, ``shape_centers_jnp``).
 
   sphere   -> center +- radius
   wall     -> start and Wall::end() corners
@@ -20,7 +21,7 @@ import torch
 
 from raytracer_tpu_torch.core.scene import (PLANE, SPHERE, TRIANGLE, WALL,
                                             FlatScene, to_numpy, wall_end)
-from raytracer_tpu_torch.geom.direct import sqrt_rn
+from raytracer_tpu_torch.geom.direct import div_rn, sqrt_rn
 
 
 def shape_aabbs(scene: FlatScene) -> Tuple[np.ndarray, np.ndarray]:
@@ -130,3 +131,21 @@ def shape_aabbs_device(scene: FlatScene
         is_w, torch.maximum(scene.wall_start, end), torch.where(
             is_t, torch.maximum(torch.maximum(p1, p2), p3), 0.0)))
     return mins, maxs
+
+
+def shape_centers_device(scene: FlatScene) -> torch.Tensor:
+    """Split / Morton centers ((N, 3), main.cpp:1127-1153 semantics) on the
+    scene's device: sphere center, (start + end()) / 2 for walls, the
+    vertex mean for triangles, zeros for planes."""
+    st = scene.shape_type
+    end = wall_end_device(scene.plane_normal, scene.wall_start,
+                          scene.wall_width, scene.wall_height)
+    wall_c = (scene.wall_start + end) * 0.5
+    # IEEE division on both devices (CUDA's division by a Python scalar
+    # multiplies by its reciprocal)
+    tri_c = div_rn(scene.tri_p1 + scene.tri_p2 + scene.tri_p3, 3.0)
+    is_s = (st == SPHERE)[:, None]
+    is_w = (st == WALL)[:, None]
+    is_t = (st == TRIANGLE)[:, None]
+    return torch.where(is_s, scene.sphere_center, torch.where(
+        is_w, wall_c, torch.where(is_t, tri_c, 0.0)))

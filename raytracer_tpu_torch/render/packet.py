@@ -30,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from raytracer_tpu_torch.accel.lbvh import node_cullable_flags_device
 from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.core.camera import camera_rays
 from raytracer_tpu_torch.core.scene import WALL
@@ -44,22 +45,16 @@ from raytracer_tpu_torch.render.wavefront import Tree, walk
 USE_OCCLUSION = False
 
 
-def node_cullable_flags(lin, scene) -> np.ndarray:
-    """(m,) f32: 1.0 where a node's whole DFS subtree is free of
-    degenerate-basis walls (safe for t-culling), else 0.0."""
+def _cull_flags(lin, scene) -> torch.Tensor:
+    """(m,) f32 on the tree's device: 1.0 where a node's whole DFS subtree
+    is free of degenerate-basis walls (safe for t-culling), else 0.0."""
     _, _, w_deg = wall_basis(scene.plane_normal)
-    deg = (w_deg & (scene.shape_type == WALL)).cpu().numpy().astype(np.int64)
-    perm = lin.perm.numpy()
-    starts = lin.leaf_start.numpy().astype(np.int64)
-    counts = lin.leaf_count.numpy().astype(np.int64)
-    skip = lin.skip.numpy().astype(np.int64)
-    # degenerate walls per leaf, then a prefix over DFS order: the subtree
-    # of node i is the DFS range [i, skip[i])
-    cum = np.concatenate([[0], np.cumsum(deg[perm])])
-    leaf_deg = cum[starts + counts] - cum[starts]
-    pref = np.concatenate([[0], np.cumsum(leaf_deg)])
-    sub = pref[skip] - pref[np.arange(lin.num_nodes)]
-    return (sub == 0).astype(np.float32)
+    return node_cullable_flags_device(lin, w_deg & (scene.shape_type == WALL))
+
+
+def node_cullable_flags(lin, scene) -> np.ndarray:
+    """The cull flags of ``_cull_flags`` as a host array."""
+    return _cull_flags(lin, scene).cpu().numpy()
 
 
 def packet_plain(tree: Tree, o: torch.Tensor, d: torch.Tensor, use_mt: bool,
@@ -157,10 +152,11 @@ occlusion.launches = 0
 def make_tree(lin, scene, t_cull: bool = True, cull_flags=None) -> Tree:
     """The kernels' tables on the scene's device: the scene's packed rows
     in DFS-leaf order and the nodes, with the cull flags in column 6 when
-    ``t_cull``."""
+    ``t_cull``. The flags are computed on the tree's device: for a tree
+    rebuilt on the card, nothing is copied to the host."""
     rows = rowwise.pack_rows(scene)
     if t_cull and cull_flags is None:
-        cull_flags = node_cullable_flags(lin, scene)
+        cull_flags = _cull_flags(lin, scene)
     rows_perm = rows[lin.perm.to(rows.device).long()]
     return Tree.make(lin, rows_perm, cull_flags if t_cull else None)
 

@@ -23,8 +23,8 @@ The per-step refreshers ``update_pre_rows``, ``update_tri_rows`` and
 ``update_dynamic`` repack the float tables from a changed scene as tensor
 code on the tables' device (no host round trip), with the tree's topology
 fixed and its boxes refit; ``prepare`` stores the refit metadata they
-read. ``update_materials`` (the host-side regrouping after a material
-edit) is not ported yet.
+read. ``update_materials`` is the host-side regrouping after a material
+edit.
 """
 
 from __future__ import annotations
@@ -470,3 +470,39 @@ def update_dynamic(split: SplitScene, scene: FlatScene) -> SplitScene:
     """Refresh both sides for an arbitrary animation or fit step: the
     pre-pass rows, then the triangle rows with the tree's refit."""
     return update_tri_rows(update_pre_rows(split, scene), scene)
+
+
+def update_materials(split: SplitScene, scene: FlatScene) -> SplitScene:
+    """Host-side refresh after MATERIAL edits (the live editor, reference
+    src/main.cpp:384-429): re-packs the material columns of both row
+    tables and regroups the canonical resolve ids (G_RID / T_RID) and
+    ``rid_values``, which ``prepare`` froze from the original materials.
+    The per-step refreshers carry the old ids forward, since the grouping
+    (``np.unique``) is data-dependent; an edit without this call would
+    shade a stale group with its representative's material. The tables
+    go back to the split's device."""
+    _need_refit(split)
+    cols = scene.numpy()
+    canon = _canonical_material_ids(cols, cols["shape_type"].shape[0])
+    pre = to_numpy(split.pre_rows).copy()
+    tri = to_numpy(split.tri_rows).copy()
+    for table, n, ids, (mc, ka, kd, ks, kf, sh, rid) in (
+            (pre, split.n_other, split.other_idx,
+             (G_MCR, G_MKA, G_MKD, G_MKS, G_MKF, G_MSH, G_RID)),
+            (tri, split.n_tri, split.tri_gids,
+             (T_MCR, T_MKA, T_MKD, T_MKS, T_MKF, T_MSH, T_RID))):
+        if not n:
+            continue
+        g = to_numpy(ids)[:n].astype(np.int64)
+        table[:n, mc:mc + 3] = cols["mat_color"][g]
+        table[:n, ka] = cols["mat_ambient"][g]
+        table[:n, kd] = cols["mat_diffuse"][g]
+        table[:n, ks] = cols["mat_specular"][g]
+        table[:n, kf] = cols["mat_fresnel"][g]
+        table[:n, sh] = cols["mat_shininess"][g]
+        table[:n, rid] = canon[g].astype(np.float32)
+    dev = split.device
+    return dataclasses.replace(
+        split, pre_rows=torch.from_numpy(pre).to(dev),
+        tri_rows=torch.from_numpy(tri).to(dev),
+        rid_values=tuple(int(v) for v in np.unique(canon)))

@@ -41,10 +41,11 @@ BATCH_PAIRS = 1 << 20
 
 @dataclasses.dataclass
 class Tree:
-    """The reference tree's tables on one device, as the packet kernels
-    read them: leaf_start/leaf_count/skip (m,) int32; nodes (m, 8) f32,
-    box min xyz, max xyz, the cull flag (1.0 cullable) and a zero column;
-    rows (K, PACK_WIDTH) f32, the packed shape rows in DFS-leaf order."""
+    """A tree's tables on one device (the reference median tree's, or an
+    LBVH rebuilt on the card), as the packet kernels read them:
+    leaf_start/leaf_count/skip (m,) int32; nodes (m, 8) f32, box min xyz,
+    max xyz, the cull flag (1.0 cullable) and a zero column; rows (K,
+    PACK_WIDTH) f32, the packed shape rows in DFS-leaf order."""
 
     leaf_start: torch.Tensor
     leaf_count: torch.Tensor
@@ -53,18 +54,10 @@ class Tree:
     rows: torch.Tensor
 
     def __post_init__(self):
-        # The kernels trust these tables: refuse, on the host, leaves that
-        # run past the rows and skip pointers that do not move forward.
-        m, k = self.m, self.rows.shape[0]
-        ls, lc, sk = (x.cpu().to(torch.int64) for x in
-                      (self.leaf_start, self.leaf_count, self.skip))
-        if not (lc.shape[0] == sk.shape[0] == m == self.nodes.shape[0]):
-            raise ValueError("tree tables of different lengths")
-        if m and (int((ls + lc).max()) > k or int(ls.min()) < 0
-                  or int(lc.min()) < 0):
-            raise ValueError("leaf ranges run outside the rows")
-        if m and (bool((sk <= torch.arange(m)).any()) or int(sk.max()) > m):
-            raise ValueError("skip pointers must point forward, up to m")
+        # The kernels trust these tables: refuse leaves that run past the
+        # rows and skip pointers that do not move forward.
+        _check_tables(self.leaf_start, self.leaf_count, self.skip,
+                      self.nodes.shape[0], self.rows.shape[0])
 
     @property
     def m(self) -> int:
@@ -72,18 +65,52 @@ class Tree:
 
     @staticmethod
     def make(bvh, rows_perm: torch.Tensor, cull_flags=None) -> "Tree":
-        """From a LinearBVH (host tensors) and its DFS-ordered rows, on
-        the rows' device; ``cull_flags`` (m,) fills node column 6."""
+        """From a LinearBVH and its DFS-ordered rows, on the rows' device;
+        ``cull_flags`` (m,) fills node column 6. The tables are assembled
+        on that device. A tree built on the host is checked there first."""
         dev = rows_perm.device
+        ints = (bvh.leaf_start, bvh.leaf_count, bvh.skip)
+        if bvh.leaf_start.device.type == "cpu":
+            _check_tables(*ints, bvh.num_nodes, rows_perm.shape[0])
         m = bvh.num_nodes
-        nodes = torch.zeros((m, 8), dtype=torch.float32)
-        nodes[:, 0:6] = bvh.bounds
-        if cull_flags is not None:
-            nodes[:, 6] = torch.as_tensor(cull_flags, dtype=torch.float32)
+        flags = (torch.zeros(m, dtype=torch.float32, device=dev)
+                 if cull_flags is None else
+                 torch.as_tensor(cull_flags, dtype=torch.float32).to(dev))
+        nodes = torch.cat([bvh.bounds.to(device=dev, dtype=torch.float32),
+                           flags[:, None],
+                           torch.zeros((m, 1), dtype=torch.float32,
+                                       device=dev)], dim=1)
         return Tree(*(x.to(device=dev, dtype=torch.int32).contiguous()
-                      for x in (bvh.leaf_start, bvh.leaf_count, bvh.skip)),
-                    nodes=nodes.to(dev),
+                      for x in ints),
+                    nodes=nodes.contiguous(),
                     rows=rows_perm.to(torch.float32).contiguous())
+
+
+def _check_tables(leaf_start, leaf_count, skip, m_nodes: int, k: int):
+    """Leaf ranges inside the k rows, skip pointers forward and at most m.
+    On the host this raises ValueError; on the card it queues
+    ``torch._assert_async`` checks, so a tree rebuilt every frame is
+    checked without a copy to the host (a failed check stops the card's
+    context)."""
+    m = leaf_start.shape[0]
+    if not (leaf_count.shape[0] == skip.shape[0] == m == m_nodes):
+        raise ValueError("tree tables of different lengths")
+    if m == 0:
+        return
+    ls, lc, sk = (x.to(torch.int64) for x in (leaf_start, leaf_count, skip))
+    leaves_ok = (((ls + lc).amax() <= k) & (ls.amin() >= 0)
+                 & (lc.amin() >= 0))
+    skip_ok = ((sk > torch.arange(m, device=sk.device)).all()
+               & (sk.amax() <= m))
+    if sk.device.type == "cpu":
+        if not bool(leaves_ok):
+            raise ValueError("leaf ranges run outside the rows")
+        if not bool(skip_ok):
+            raise ValueError("skip pointers must point forward, up to m")
+    else:
+        torch._assert_async(leaves_ok, "leaf ranges run outside the rows")
+        torch._assert_async(skip_ok,
+                            "skip pointers must point forward, up to m")
 
 
 def walk(tree: Tree, o: torch.Tensor, d: torch.Tensor, use_mt: bool,
