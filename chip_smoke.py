@@ -29,7 +29,12 @@ occlusion_kernel over it bit for bit, the animated split streams (scene
 1 bouncing through the one-launch frame, scene 2's wheels through the
 sort_bounces hybrid) timed over 20 chained frames with frame 5 held
 against a static render, and the "pallas" frames (LBVH rebuild + packet
-renderer) timed and held against the wavefront frame. It times each
+renderer) timed and held against the wavefront frame. Phase 7 drives the
+port's command line (raytracer_tpu_torch.cli) in-process, with every
+plain version of a kernel set to raise: render to PNG (equal to the
+direct render byte for byte), bench, the brute-force oracle on the card
+against the production frames, a scripted play session held frame for
+frame against direct renders, and animate --dynamic. It times each
 kernel on the main paths' inputs by CUDA events over back-to-back calls
 (the call, which holds the host's issue time where that is longer) and by
 torch.profiler (the device), closest_hit_kernel on both scenes' primary
@@ -1428,6 +1433,16 @@ def main() -> int:
         "phase 6c: frame 5 of the animated split streams of scenes 1 and 2 "
         "against a static render of the same scene (pixels over 1e-4 under "
         "0.5%, median at most 1e-6)")
+
+    # -- phase 7: the command line (raytracer_tpu_torch.cli) -----------------
+    phase7 = cli_paths(dev, card, reset, read, names)
+    for k, v in phase7.items():
+        print(json.dumps({"phase": k, **v}), flush=True)
+    held["wholeframe_kernel"].append(
+        "phase 7a: the command line's PNGs of scene 1 (one launch) and scene "
+        "2 (hybrid) equal to_uint8 of split.render byte for byte; 7c: the "
+        "one-launch frames and scene 2's hybrid against the brute-force "
+        "oracle on the card; 7d: play frames equal direct renders")
     log(f"all paths: launches {total}, wholeframe_kernel by mode {by_mode}")
 
     rows = [
@@ -1880,6 +1895,305 @@ def animated_paths(scenes, cfg, dev, gen, reset, read, names):
         check(bool(torch.isfinite(ip).all()) and vs_wave <= PACKET_ATOL,
               "the pallas frame differs from the wavefront frame")
     return out
+
+
+# The scripted play session of phase 7d: each event renders one frame.
+PLAY_EVENTS = ("key w 0.5", "mouse 40 -25", "material 0:color=1,0,0",
+               "light pos 5 -20 10", "bvh off", "bvh on",
+               "renderer pallas-bvh", "renderer pallas",
+               "renderer reference", "renderer cpu", "quit")
+# The plain versions that a pallas* renderer must not reach on the card.
+PLAIN_FNS = (("wholeframe", "wholeframe_plain"), ("packet", "packet_plain"),
+             ("packet", "occlusion_plain"), ("brute", "brute_plain"),
+             ("split", "closest_hit_plain"), ("split", "fused_plain"),
+             ("split", "resolve_plain"), ("split", "closest_hit_attrs_plain"))
+
+
+def cli_paths(dev, card, reset, read, names, size=(FRAME_W, FRAME_H),
+              play_size=(CHECK_W, CHECK_H)):
+    """Phase 7, the port's command line (``raytracer_tpu_torch.cli``)
+    driven in-process, each command with the launch counts set to 0 just
+    before it and read just after, with every plain version of a kernel
+    set to raise (the command line never renders a pallas* renderer
+    through one on the card). 7a: ``render`` of scene 1 and of scene 2
+    with --sort-bounces (pallas-split) to PNGs that must equal, byte for
+    byte, ``to_uint8`` of ``split.render`` of the same inputs. 7b:
+    ``bench --iters 20`` (pallas-split) on scenes 1 and 2. 7c: the
+    brute-force oracle (``render/reference.py`` with the reference tree's
+    leaf boxes) on the card against the one-launch frames and scene 2's
+    hybrid: pixels beyond 2e-5 and 1e-4 (at most PER_BOUNCE_MAX_FRACTION
+    of the frame), max-abs, frame ms and peak memory; and a forced tie
+    of batched.closest_hit; the oracle also against the packet frame
+    (the wavefront frame, phase 5d). 7d: a scripted ``play`` session whose every
+    saved frame equals a direct call of the same renderer with the same
+    camera, scene and configuration. 7e: ``animate --dynamic`` of scene
+    2 (pallas-split): frames written and the last fps. Returns the
+    results, one dict a sub-phase."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from raytracer_tpu_torch import cli
+    from raytracer_tpu_torch.accel import build_bvh, linearize
+    from raytracer_tpu_torch.accel.linearize import shape_leaf_boxes
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.core import camera as cam_ops
+    from raytracer_tpu_torch.core.scene import SceneBuilder
+    from raytracer_tpu_torch.geom import batched
+    from raytracer_tpu_torch.io.image import read_png, to_uint8
+    from raytracer_tpu_torch.render import (brute, cpu_fallback, packet,
+                                            reference, wholeframe)
+    from raytracer_tpu_torch.render import split as split_mod
+    from raytracer_tpu_torch.scenes import generate_scene
+
+    w, h = size
+    dev_flag = ["--device", str(dev)]
+    out = {}
+    modules = {"wholeframe": wholeframe, "packet": packet, "brute": brute,
+               "split": split_mod}
+
+    def no_plain(name):
+        def raiser(*a, **k):
+            raise AssertionError(f"the command line reached {name} on "
+                                 f"{dev}")
+        return raiser
+
+    @contextlib.contextmanager
+    def kernels_only():
+        saved = [(modules[m], f, getattr(modules[m], f))
+                 for m, f in PLAIN_FNS]
+        if dev.type == "cuda":
+            for mod, f, _ in saved:
+                setattr(mod, f, no_plain(f))
+        try:
+            yield
+        finally:
+            for mod, f, fn in saved:
+                setattr(mod, f, fn)
+
+    def run(argv, want):
+        """cli.main(argv) with the counts set to 0 before and read after;
+        each kernel in ``want`` must have launched that many times (None:
+        at least once), every other kernel none. Returns (its stdout,
+        the counts)."""
+        buf = io.StringIO()
+        with kernels_only(), contextlib.redirect_stdout(buf):
+            reset()
+            cli.main(argv + dev_flag)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            got = read()
+        text = buf.getvalue()
+        print(text, end="", flush=True)
+        for k in names:
+            n = want.get(k, 0)
+            check(got[k] > 0 if n is None else got[k] == n,
+                  f"{' '.join(argv[:3])}: {k} launched {got[k]} times, "
+                  f"not {'at least once' if n is None else n}")
+        return text, got
+
+    def scene(which, width, height):
+        sc = generate_scene(which, aspect=width / height, device=dev)
+        return sc, linearize(build_bvh(sc.flat, sc.bvh_max_depth))
+
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        # -- 7a: render to PNG, held against split.render byte for byte ---
+        t0 = time.perf_counter()
+        out["7a"] = {}
+        for which, sort in ((1, False), (2, True)):
+            path = os.path.join(tmp.name, f"scene{which}.png")
+            argv = ["render", "--scene", str(which), "--width", str(w),
+                    "--height", str(h), "--bounces", str(BOUNCES),
+                    "--renderer", "pallas-split", "--out", path]
+            _, got = run(argv + (["--sort-bounces"] if sort else []),
+                         {"wholeframe_kernel": 2 if sort else 1})
+            sc, lin = scene(which, w, h)
+            cfg = RenderConfig(width=w, height=h, max_bounces=BOUNCES,
+                               sort_bounces=sort)
+            want = to_uint8(split_mod.render(sc.flat, lin, sc.camera,
+                                             sc.light, cfg, device=dev))
+            png = read_png(path)
+            equal = bool(np.array_equal(png, want))
+            out["7a"][f"scene {which}"] = dict(
+                sort_bounces=sort, png_equals_direct=equal,
+                launches={k: v for k, v in got.items() if v})
+            check(equal, f"7a: scene {which}'s PNG differs from "
+                  "to_uint8(split.render(...))")
+        log(f"phase 7a: render --renderer pallas-split to PNG at {w}x{h}: "
+            f"{out['7a']} ({time.perf_counter() - t0:.1f}s)")
+
+        # -- 7b: bench --------------------------------------------------
+        out["7b"] = {}
+        for which in (1, 2):
+            iters = 20
+            text, _ = run(["bench", "--scene", str(which), "--width",
+                           str(w), "--height", str(h), "--renderer",
+                           "pallas-split", "--iters", str(iters)],
+                          {"wholeframe_kernel": iters + 2})
+            stats = json.loads(text.strip().splitlines()[-1])
+            stats["card"] = card
+            out["7b"][f"scene {which}"] = stats
+            print(json.dumps(stats), flush=True)
+            check(stats["iters"] == iters and stats["fps"] > 0,
+                  "7b: bench printed no frame rate")
+
+        # -- 7c: the oracle on the card ----------------------------------
+        out["7c"] = {}
+        bound = int(PER_BOUNCE_MAX_FRACTION * w * h)
+        for which in (1, 2):
+            sc, lin = scene(which, w, h)
+            boxes = shape_leaf_boxes(lin, sc.num_shapes)
+            cfg = RenderConfig(width=w, height=h, max_bounces=BOUNCES)
+            reset()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            before = (torch.cuda.memory_allocated() if dev.type == "cuda"
+                      else 0)
+            oracle, ms = timed_once(lambda: reference.render(
+                sc.flat, sc.camera, sc.light, cfg, leaf_boxes=boxes,
+                device=dev))
+            peak = (torch.cuda.max_memory_allocated() - before
+                    if dev.type == "cuda" else None)
+            got = read()
+            check(not any(got.values()), f"7c: the oracle launched {got}")
+            check(bool(torch.isfinite(oracle).all()),
+                  "7c: the oracle's frame is not finite")
+            res = dict(oracle_ms=ms, oracle_peak_bytes=peak,
+                       held_before_bytes=before)
+            args = (sc.flat, lin, sc.camera, sc.light)
+            routes = {"one-launch": lambda: split_mod.render(
+                *args, cfg, device=dev)}
+            if which == 2:
+                routes["hybrid"] = lambda: split_mod.render(
+                    *args, cfg.replace(sort_bounces=True), device=dev)
+            # the packet frame equals the wavefront frame (phase 5d), the
+            # oracle's counterpart with the raw barycentric test
+            routes["packet"] = lambda: packet.render(*args, cfg, device=dev)
+            for route, frame in routes.items():
+                err = (frame() - oracle).abs().amax(-1)
+                res[route] = dict(px_over_2e5=int((err > 2e-5).sum()),
+                                  px_over_1e4=int((err > 1e-4).sum()),
+                                  max_abs=float(err.max()))
+                check(res[route]["px_over_1e4"] <= bound,
+                      f"7c: scene {which}: the {route} frame differs from "
+                      f"the oracle on {res[route]['px_over_1e4']} pixels "
+                      f"over 1e-4 (bound {bound})")
+                # the JAX package's bar of the wavefront frame against the
+                # oracle with leaf boxes (tests/test_scene2_parity.py:36)
+                check(route != "packet"
+                      or res[route]["max_abs"] <= PACKET_ATOL,
+                      f"7c: scene {which}: the packet frame differs from "
+                      f"the oracle by {res[route]['max_abs']:.3g}")
+            out["7c"][f"scene {which}"] = res
+            log(f"phase 7c: scene {which} oracle {w}x{h}x{BOUNCES}: "
+                f"{ms:.1f} ms, peak {fmt_bytes(peak)} above the "
+                f"{fmt_bytes(before)} held before; "
+                + "; ".join(f"{r} frame: {v['px_over_2e5']} px > 2e-5, "
+                            f"{v['px_over_1e4']} px > 1e-4 (bound {bound}), "
+                            f"max-abs {v['max_abs']:.3g}"
+                            for r, v in res.items() if isinstance(v, dict))
+                + f" ({card})")
+        # ties go to the lowest shape index on the card, as in the scan
+        b = SceneBuilder()
+        for c, r in (((0, 0, -5), 1.0), ((0, 0, -4), 0.5),
+                     ((3, 0, -8), 1.0), ((0, 0, -4), 0.5)):
+            b.add_sphere(c, r)
+        g = torch.linspace(-0.07, 0.07, 9, device=dev)
+        d = torch.stack([g.repeat(9), g.repeat_interleave(9),
+                         -torch.ones(81, device=dev)], 1)
+        d = d / d.norm(dim=1, keepdim=True)
+        _, sid, hit = batched.closest_hit(batched.precompute(b.build(dev)),
+                                          torch.zeros_like(d), d)
+        out["7c"]["tie_to_lowest_index"] = bool(hit.all() and (sid == 1).all())
+        check(out["7c"]["tie_to_lowest_index"],
+              "7c: a tie did not go to the lowest shape index")
+
+        # -- 7d: a scripted play session ---------------------------------
+        t0 = time.perf_counter()
+        pw, ph = play_size
+        script = os.path.join(tmp.name, "session.txt")
+        with open(script, "w") as f:
+            f.write("\n".join(PLAY_EVENTS) + "\n")
+        play_dir = os.path.join(tmp.name, "play")
+        frames = PLAY_EVENTS.index("quit")
+        _, launched = run(
+            ["play", "--scene", "1", "--width", str(pw), "--height", str(ph),
+             "--renderer", "pallas-split", "--script", script, "--out-dir",
+             play_dir],
+            {"wholeframe_kernel": 6, "packet_kernel": 2 * BOUNCES,
+             "brute_kernel": 2 * BOUNCES})
+        # the same session by direct calls of the renderers
+        sc, lin = scene(1, pw, ph)
+        cfg = RenderConfig(width=pw, height=ph, max_bounces=BOUNCES)
+        flat, cam, light, bvh = sc.flat, sc.camera, sc.light, lin
+        direct = {
+            "pallas-split": lambda: split_mod.render(
+                flat, bvh, cam, light, cfg, device=dev),
+            "pallas-bvh": lambda: packet.render(flat, bvh, cam, light, cfg,
+                                                device=dev),
+            "pallas": lambda: brute.render(flat, bvh, cam, light, cfg,
+                                           device=dev),
+            "reference": lambda: reference.render(flat, cam, light, cfg,
+                                                  device=dev),
+            "cpu": lambda: cpu_fallback.render(flat, cam, light, cfg,
+                                               device=dev),
+        }
+        renderer, diffs = "pallas-split", []
+        for i, ev in enumerate(PLAY_EVENTS[:frames]):
+            kind, *args = ev.split()
+            if kind == "key":
+                cam = cam_ops.move(cam, cli._KEYMAP[args[0]], float(args[1]))
+            elif kind == "mouse":
+                cam = cam_ops.mouse_look(cam, float(args[0]), float(args[1]))
+            elif kind == "material":
+                flat = cli._apply_material_spec(flat, args[0])
+            elif kind == "light":
+                light = cli._apply_light(light, pos=[float(v)
+                                                     for v in args[1:]])
+            elif kind == "bvh":
+                cfg = cfg.replace(use_bvh=args[0] == "on")
+                bvh = lin if args[0] == "on" else None
+            elif kind == "renderer":
+                renderer = args[0]
+            want = to_uint8(direct[renderer]())
+            png = read_png(os.path.join(play_dir, f"play_{i:04d}.png"))
+            diffs.append(int(np.abs(png.astype(int) - want.astype(int))
+                             .max()))
+        out["7d"] = dict(events=list(PLAY_EVENTS), frames=frames,
+                         max_abs_vs_direct=diffs,
+                         launches={k: v for k, v in launched.items() if v})
+        log(f"phase 7d: play at {pw}x{ph}, {frames} frames: max-abs (uint8) "
+            f"against direct renders {diffs}; launches {out['7d']['launches']}"
+            f" ({time.perf_counter() - t0:.1f}s)")
+        check(diffs == [0] * frames,
+              "7d: a play frame differs from the direct render")
+
+        # -- 7e: animate --dynamic ---------------------------------------
+        anim_dir = os.path.join(tmp.name, "anim")
+        n_anim = 5
+        text, _ = run(["animate", "--dynamic", "--renderer", "pallas-split",
+                       "--scene", "2", "--frames", str(n_anim), "--width",
+                       str(w), "--height", str(h), "--out-dir", anim_dir],
+                      {"wholeframe_kernel": n_anim})
+        written = sorted(os.listdir(anim_dir))
+        fps = float(re.search(r"last fps=([0-9.]+)", text).group(1))
+        out["7e"] = dict(frames_written=len(written), last_fps=fps,
+                         card=card)
+        log(f"phase 7e: animate --dynamic scene 2 at {w}x{h}: "
+            f"{len(written)} frames written, last fps {fps} ({card})")
+        check(written == [f"frame_{i:04d}.png" for i in range(n_anim)],
+              f"7e: wrote {written}")
+    finally:
+        tmp.cleanup()
+    return out
+
+
+def fmt_bytes(n):
+    return "not measured" if n is None else f"{n / 2**20:.1f} MiB"
 
 
 def timed_once(fn):

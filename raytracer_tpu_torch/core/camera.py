@@ -17,6 +17,8 @@ from raytracer_tpu_torch.geom.direct import div_rn
 # Reference defaults (src/camera.hpp:21-26).
 YAW = -90.0
 PITCH = 0.0
+SPEED = 15.0
+SENSITIVITY = 0.1
 WORLD_UP = (0.0, 1.0, 0.0)
 
 
@@ -92,3 +94,47 @@ def camera_rays(cam: Camera, width: int, height: int
     """All primary rays for the image, shape (H, W, 3) each."""
     ndc_x, ndc_y = pixel_ndc(width, height, cam.device)
     return get_rays(cam, ndc_x, ndc_y)
+
+
+def move(cam: Camera, direction: str, delta_time, speed=SPEED) -> Camera:
+    """WASD/space/ctrl movement (src/camera.hpp:75-90). The reference's
+    y-down quirk is kept: "up" *subtracts* cam.up and "down" adds it
+    (camera.hpp:86-89; PARITY row 11)."""
+    v = (torch.as_tensor(speed, dtype=torch.float32, device=cam.device)
+         * torch.as_tensor(delta_time, dtype=torch.float32,
+                           device=cam.device))
+    axes = {"forward": (cam.front, 1), "backward": (cam.front, -1),
+            "left": (cam.right, -1), "right": (cam.right, 1),
+            "up": (cam.up, -1), "down": (cam.up, 1)}
+    if direction not in axes:
+        raise ValueError(f"unknown direction {direction!r}")
+    axis, sign = axes[direction]
+    # negation is exact: the same bits as the JAX function's -axis * v
+    return Camera(cam.position + axis * (sign * v), cam.front, cam.up,
+                  cam.right, cam.fov_deg, cam.aspect, device=cam.device,
+                  half_h=cam.half_h)
+
+
+def yaw_pitch_of(cam: Camera):
+    """Euler angles in degrees from the front vector (the inverse of
+    ``_vectors_from_euler``; mouse-look starts from them)."""
+    pitch = torch.rad2deg(torch.asin(torch.clamp(cam.front[1], -1.0, 1.0)))
+    yaw = torch.rad2deg(torch.atan2(cam.front[2], cam.front[0]))
+    return yaw, pitch
+
+
+def mouse_look(cam: Camera, dx, dy, sensitivity=SENSITIVITY,
+               constrain_pitch=True, world_up=WORLD_UP) -> Camera:
+    """Mouse-look (src/camera.hpp:93-112): yaw += dx*s, pitch += dy*s,
+    pitch clamped to [-89, 89] (as f32 tensors, as the JAX function
+    computes them)."""
+    yaw, pitch = yaw_pitch_of(cam)
+    f32 = dict(dtype=torch.float32, device=cam.device)
+    yaw = yaw + torch.as_tensor(dx, **f32) * sensitivity
+    pitch = pitch + torch.as_tensor(dy, **f32) * sensitivity
+    if constrain_pitch:
+        pitch = torch.clamp(pitch, torch.tensor(-89.0, **f32),
+                            torch.tensor(89.0, **f32))
+    front, right, up = _vectors_from_euler(yaw, pitch, world_up, cam.device)
+    return Camera(cam.position, front, up, right, cam.fov_deg, cam.aspect,
+                  device=cam.device, half_h=cam.half_h)

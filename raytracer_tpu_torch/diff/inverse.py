@@ -18,6 +18,7 @@ from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.core.scene import FlatScene
 from raytracer_tpu_torch.core.types import Camera, Light
 from raytracer_tpu_torch.device import resolve_device
+from raytracer_tpu_torch.render import reference
 
 
 def image_loss(img: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -62,15 +63,12 @@ def make_loss_fn(scene: FlatScene, camera: Camera, light: Light,
     {field: tensor}) replaced; the other fields are constants.
 
     ``renderer(scene, camera, light, cfg) -> image`` selects the render
-    path; pass ``make_kernel_renderer``'s result to fit through the
-    production kernel. It is required: the JAX package's default, the
-    brute-force oracle ``render/reference.py``, is not ported yet."""
+    path: by default the brute-force oracle (``render/reference.py``) on
+    the scene's device, differentiable by autograd; pass
+    ``make_kernel_renderer``'s result to fit through the production
+    kernel."""
     if renderer is None:
-        raise NotImplementedError(
-            "make_loss_fn needs a renderer: the default of the JAX package, "
-            "the brute-force oracle (render/reference.py), is not ported "
-            "yet (ROADMAP.md, Queue 1, oracles); pass "
-            "make_kernel_renderer(bvh, split)")
+        renderer = _oracle
     fields = tuple(param_fields)
 
     def loss(params: Dict[str, torch.Tensor],
@@ -81,6 +79,10 @@ def make_loss_fn(scene: FlatScene, camera: Camera, light: Light,
 
     loss.param_fields = fields
     return loss
+
+
+def _oracle(scene: FlatScene, camera, light, cfg) -> torch.Tensor:
+    return reference.render(scene, camera, light, cfg, device=scene.device)
 
 
 def make_kernel_renderer(bvh, split0, device=None) -> Callable:

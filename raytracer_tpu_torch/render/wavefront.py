@@ -252,11 +252,7 @@ def render(scene, bvh, camera, light, cfg: RenderConfig,
     o, d, bg = (x.reshape(-1, 3) for x in (o, d, bg))
     n_rays = o.shape[0]
     chunk = min(cfg.ray_chunk, n_rays)
-    pad = (-n_rays) % chunk
-    if pad:
-        o = torch.cat([o, o.new_zeros(pad, 3)])
-        d = torch.cat([d, d.new_ones(pad, 3)])
-        bg = torch.cat([bg, bg.new_zeros(pad, 3)])
+    o, d, bg = whitted.pad_rays(chunk, o, d, bg)
     colors = [whitted.trace(scene, light, closest,
                             *(x[c:c + chunk].contiguous() for x in (o, d, bg)),
                             cfg)

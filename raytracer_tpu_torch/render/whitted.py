@@ -100,6 +100,17 @@ def _bounce_sort_key(o: torch.Tensor, d: torch.Tensor,
     return torch.where(live, key, torch.full_like(key, 1 << 30))
 
 
+def pad_rays(chunk: int, o, d, *rest):
+    """Pad (R, 3) rays to a multiple of ``chunk`` rows: o and the others
+    with 0, d with 1 (a finite, non-zero direction)."""
+    pad = (-o.shape[0]) % chunk
+    if not pad:
+        return (o, d) + rest
+    return ((torch.cat([o, o.new_zeros(pad, 3)]),
+             torch.cat([d, d.new_ones(pad, 3)]))
+            + tuple(torch.cat([x, x.new_zeros(pad, 3)]) for x in rest))
+
+
 def _where3(mask, a, b):
     return torch.where(mask[:, None], a, b)
 

@@ -106,10 +106,17 @@ def test_image_loss_pyramid_matches_jax():
 
 
 def test_loss_fn_needs_a_renderer():
+    """Without a renderer, make_loss_fn renders through the brute-force
+    oracle (render/reference.py) on the scene's device."""
+    from raytracer_tpu_torch.render import reference
     p = ported(1)
-    with pytest.raises(NotImplementedError, match="reference"):
-        diff.make_loss_fn(p.flat, p.camera, p.light, RenderConfig(),
-                          torch.zeros(1), ["mat_color"])
+    cfg = RenderConfig(width=8, height=6)
+    target = torch.full((6, 8, 3), 0.25)
+    loss = diff.make_loss_fn(p.flat, p.camera, p.light, cfg, target,
+                             ["mat_color"])
+    want = diff.image_loss(reference.render(p.flat, p.camera, p.light, cfg,
+                                            device="cpu"), target)
+    assert torch.equal(loss({"mat_color": p.flat.mat_color}), want)
 
 
 JAX_CFG = JaxConfig(width=32, height=24, max_bounces=2, use_bvh=True,
