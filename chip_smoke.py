@@ -34,7 +34,14 @@ port's command line (raytracer_tpu_torch.cli) in-process, with every
 plain version of a kernel set to raise: render to PNG (equal to the
 direct render byte for byte), bench, the brute-force oracle on the card
 against the production frames, a scripted play session held frame for
-frame against direct renders, and animate --dynamic. It times each
+frame against direct renders, and animate --dynamic. Phase 8 drives the
+strip-sharded route (raytracer_tpu_torch.parallel): the window mode of
+wholeframe_kernel bit for bit against its plain version, the strip
+frames of scenes 1 and 2 on 2 and 4 strips of the card (and over every
+card where there are more than one) equal to split.render's, the
+sharded differentiable route's gradients against the single device's,
+the multi-device dry run, and the examples' --kernel and --kernel-camera
+fits for a few steps. It times each
 kernel on the main paths' inputs by CUDA events over back-to-back calls
 (the call, which holds the host's issue time where that is longer) and by
 torch.profiler (the device), closest_hit_kernel on both scenes' primary
@@ -131,6 +138,8 @@ ANIM_T, ANIM_FRAMES = 0.7, 5
 # Calls a timing of the host-bound LBVH build and "pallas" frames (~45-100
 # ms each on the H100's host).
 SLOW_REPS = 5
+# The examples' --kernel and --kernel-camera fits in phase 8e.
+SMOKE_FIT_STEPS = 20
 
 
 def log(msg):
@@ -1443,6 +1452,15 @@ def main() -> int:
         "2 (hybrid) equal to_uint8 of split.render byte for byte; 7c: the "
         "one-launch frames and scene 2's hybrid against the brute-force "
         "oracle on the card; 7d: play frames equal direct renders")
+
+    # -- phase 8: the strip-sharded route and the examples' fits -------------
+    phase8 = sharded_paths(scenes, cfg, dev, reset, read, names, err)
+    for k, v in phase8.items():
+        print(json.dumps({"phase": k, **v}), flush=True)
+    held["wholeframe_kernel"].append(
+        f"phase 8a: the window mode at {ODD_W}x{ODD_H} in 3 strips, raygen, "
+        "emit and consume: bit-exact; 8b: the strip-sharded frames of scene "
+        "1 (one launch) and scene 2 (hybrid) equal split.render's")
     log(f"all paths: launches {total}, wholeframe_kernel by mode {by_mode}")
 
     rows = [
@@ -1460,6 +1478,7 @@ def main() -> int:
              hybrid_frame_ms={str(k): v for k, v in hyb_ms.items()},
              hybrid_parts_ms={str(k): v for k, v in parts.items()},
              hybrid_max_abs_vs_one_launch=hybrid_err,
+             strip_sharded=phase8["8b"],
              held_by=held["wholeframe_kernel"]),
         dict(name="closest_hit_kernel", route="cuda",
              source="raytracer_tpu_torch/csrc/raytrace.cu",
@@ -1562,8 +1581,6 @@ def animated_paths(scenes, cfg, dev, gen, reset, read, names):
     with the rebuild's share, and at CHECK_W x CHECK_H held against the
     "wavefront" frame of the same tree. Returns the numbers for the
     kernels line."""
-    import warnings
-
     import numpy as np
     import torch
     from raytracer_tpu_torch.accel import build_bvh, linearize, refit_grow
@@ -1585,27 +1602,6 @@ def animated_paths(scenes, cfg, dev, gen, reset, read, names):
                                   "occlusion_kernel": {}},
                streams={}, pallas={})
     lin_fields = ("bounds", "leaf_start", "leaf_count", "skip", "perm")
-
-    def no_sync(fn):
-        """fn() under sync debug mode "error": a host sync raises."""
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-
-    def syncs(fn):
-        """The host syncs that fn() makes (sync debug mode "warn")."""
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        return sum("synchroniz" in str(w.message) for w in caught)
 
     # the sync debug mode sees a host sync: .item() raises under "error"
     # and warns under "warn"
@@ -2190,6 +2186,279 @@ def cli_paths(dev, card, reset, read, names, size=(FRAME_W, FRAME_H),
     finally:
         tmp.cleanup()
     return out
+
+
+def sharded_paths(scenes, cfg, dev, reset, read, names, err):
+    """Phase 8, the strip-sharded route (raytracer_tpu_torch/parallel) and
+    the examples' fits. 8a: wholeframe_kernel's window mode (rows, y_off)
+    against wholeframe_plain at ODD_W x ODD_H cut into 3 strips of
+    ceil(ODD_H / 3) rows (the last reaching past the image), in raygen,
+    emit and consume (the strip's own re-sorted rays, window-order ret),
+    bit for bit, and the strips put together equal to the whole frame's
+    launch. 8b: render_sharded_split of scene 1 (the one-launch frame) and
+    scene 2 (the sort_bounces hybrid) at 800x600x3 on meshes of 2 and 4
+    strips on this card, and over every visible card where there are
+    more than one: each frame equal to split.render's (torch.equal), its
+    launches, its host syncs (sync debug mode "warn"), and its ms by CUDA
+    events over TIMED_FRAMES frames beside the single frame's. 8c: the
+    sharded differentiable route of scene 1 on 4 shards (ray shards
+    through kernel 2, gradients summed over the shards): the loss and the
+    gradients of sphere 0's centre and colour against the single-device
+    route within GRAD_RTOL_OF_MAX of the largest component, and both
+    fwd+bwd ms. 8d: parallel.dryrun.dryrun_multichip on 4 virtual shards
+    of this card, and over every visible card where there are more than
+    one. 8e: the examples' --kernel and --kernel-camera fits at
+    SMOKE_FIT_STEPS steps (their success checks recorded, not raised):
+    the loss falls; the recovery errors. Adds 8a's error to
+    err["wholeframe_kernel"]; returns the results, one dict a
+    sub-phase."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+    from raytracer_tpu_torch import diff as rt_diff
+    from raytracer_tpu_torch.examples import inverse
+    from raytracer_tpu_torch.parallel import make_mesh, render_sharded_split
+    from raytracer_tpu_torch.parallel.dryrun import dryrun_multichip
+    from raytracer_tpu_torch.render import wholeframe as wf
+    from raytracer_tpu_torch.render.split import render
+    from raytracer_tpu_torch.render.split_scene import update_dynamic
+
+    out = {}
+    n_cards = torch.cuda.device_count()
+    multi = (f"over the {n_cards} visible cards" if n_cards > 1 else
+             "not run: 1 card visible (the multi-card case is unverified)")
+
+    def sync_all():
+        for k in range(n_cards):
+            torch.cuda.synchronize(k)
+
+    # -- phase 8a: the window mode against the plain version ---------------
+    t0 = time.perf_counter()
+    odd = cfg.replace(width=ODD_W, height=ODD_H)
+    rows = -(-ODD_H // 3)
+    w_err, n_px = 0.0, 0
+    for which, (sc, _, split, tab) in scenes.items():
+        whole = wf.wholeframe(split, tab, wf.make_params(sc.camera, sc.light),
+                              odd)
+        parts = []
+        for k in range(3):
+            par = wf.make_params(sc.camera, sc.light, y_off=k * rows)
+            ik = wf.wholeframe(split, tab, par, odd, rows=rows)
+            ip = wf.wholeframe_plain(split, tab, par, odd, rows=rows)
+            ck, sk = wf.wholeframe(split, tab, par, odd, bounces=1,
+                                   emit_state=True, rows=rows)
+            cp, sp_ = wf.wholeframe_plain(split, tab, par, odd, bounces=1,
+                                          emit_state=True, rows=rows)
+            rays, perm = wf._repack(sp_, 9)
+            ret = perm.to(torch.int32)
+            kk, ks = wf.wholeframe(split, tab, par, odd, bounces=BOUNCES - 1,
+                                   emit_state=True, rays=rays, ret=ret,
+                                   rows=rows)
+            pk, ps = wf.wholeframe_plain(split, tab, par, odd,
+                                         bounces=BOUNCES - 1,
+                                         emit_state=True, rays=rays, ret=ret,
+                                         rows=rows)
+            pairs = [(ik, ip), (ck, cp), (sk, sp_), (kk, pk), (ks, ps)]
+            w_err = max([w_err] + [(a - b).abs().max().item()
+                                   for a, b in pairs])
+            check(all(torch.equal(a, b) for a, b in pairs),
+                  f"phase 8a: scene {which} strip {k}: the window mode "
+                  "disagrees with wholeframe_plain")
+            check(bool(torch.isfinite(ik).all()), "non-finite pixels")
+            parts.append(ik)
+            n_px += ik.shape[0] * ik.shape[1]
+        check(torch.equal(torch.cat(parts)[:ODD_H], whole),
+              f"phase 8a: scene {which}: the strips differ from the frame")
+    torch.cuda.synchronize()
+    err["wholeframe_kernel"] = max(err["wholeframe_kernel"], w_err)
+    out["8a"] = dict(size=f"{ODD_W}x{ODD_H}x{BOUNCES}", strips=3,
+                     rows=rows, modes=["raygen", "raygen+emit",
+                                       "consume+emit"],
+                     max_abs=w_err, bit_exact=True,
+                     seconds=time.perf_counter() - t0)
+    log(f"phase 8a: window mode at {ODD_W}x{ODD_H}x{BOUNCES}, 3 strips of "
+        f"{rows} rows ({n_px} window pixels a mode, scenes 1 and 2): raygen,"
+        f" emit and consume bit-exact against wholeframe_plain (max-abs "
+        f"{w_err:.3g}); the strips equal the whole frame; "
+        f"{time.perf_counter() - t0:.1f}s")
+    reset()   # 8a's launches compare the kernel with its plain version
+
+    # -- phase 8b: strip-sharded frames at full width ----------------------
+    meshes = [(f"2 strips on {dev}", make_mesh(2, device=dev)),
+              (f"4 strips on {dev}", make_mesh(4, device=dev))]
+    if n_cards > 1:
+        meshes.append((f"{n_cards} cards", make_mesh()))
+    log(f"phase 8b: the multi-card case: {multi}")
+    out["8b"] = dict(multi_card=multi, frames={})
+    for which, label, c in ((1, "one-launch", cfg),
+                            (2, "hybrid", cfg.replace(sort_bounces=True))):
+        sc, lin, split, _ = scenes[which]
+        ref = render(sc.flat, lin, sc.camera, sc.light, c, split=split)
+        one_ms = cuda_ms(lambda: render(sc.flat, lin, sc.camera, sc.light, c,
+                                        split=split), TIMED_FRAMES)
+        per_strip = 2 if c.sort_bounces else 1
+        for name, mesh in meshes:
+            t0 = time.perf_counter()
+
+            def frame():
+                return render_sharded_split(sc.flat, split, sc.camera,
+                                            sc.light, c, mesh)
+            frame()   # warm-up (the replicas' first copies)
+            sync_all()
+            reset()
+            img = frame()
+            sync_all()
+            got = read()
+            modes = dict(wf.wholeframe.mode_launches)
+            want = {k: 0 for k in names}
+            want["wholeframe_kernel"] = per_strip * len(mesh)
+            n_sync = syncs(frame)
+            ms = cuda_ms(frame, TIMED_FRAMES)
+            busy, ours = device_busy_ms(frame)
+            equal = torch.equal(img, ref)
+            key = f"scene {which} {label}, {name}"
+            out["8b"]["frames"][key] = dict(
+                ms=ms, single_ms=one_ms, launches=got["wholeframe_kernel"],
+                modes=modes, host_syncs=n_sync, device_busy_ms=busy,
+                csrc_kernels_ms=ours,
+                idle_share=None if busy is None else 1 - busy / ms,
+                equal=equal)
+            log(f"phase 8b: {key} {c.width}x{c.height}x{BOUNCES}: {ms:.3f} "
+                f"ms a frame over {TIMED_FRAMES} (single frame {one_ms:.3f}"
+                f" ms), device busy {fmt(busy)} ({fmt(ours)} in csrc "
+                f"kernels), launches {got['wholeframe_kernel']} {modes}, "
+                f"{n_sync} host syncs "
+                f"a frame, torch.equal to split.render: {equal}; "
+                f"{time.perf_counter() - t0:.1f}s")
+            check(got == want, f"phase 8b: {key} launched {got}, not {want}")
+            check(equal, f"phase 8b: {key} differs from split.render "
+                  f"(max-abs {(img - ref).abs().max().item():.3g})")
+
+    # -- phase 8c: the sharded differentiable route -------------------------
+    t0 = time.perf_counter()
+    sc, lin, split, _ = scenes[1]
+    flat1 = sc.flat
+    with torch.no_grad():
+        target = render(flat1, lin, sc.camera, sc.light, cfg, split=split,
+                        differentiable=True)
+    p0 = {"center": flat1.sphere_center[0] + 0.3,
+          "color": flat1.mat_color[0] * 0.8}
+
+    def loss_and_grads(mesh):
+        p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+        s = flat1.replace(
+            sphere_center=torch.cat([p["center"][None],
+                                     flat1.sphere_center[1:]]),
+            mat_color=torch.cat([p["color"][None], flat1.mat_color[1:]]))
+        sp = update_dynamic(split, s)
+        if mesh is None:
+            img = render(s, lin, sc.camera, sc.light, cfg, split=sp,
+                         differentiable=True)
+        else:
+            img = render_sharded_split(s, sp, sc.camera, sc.light, cfg, mesh,
+                                       differentiable=True)
+        val = rt_diff.image_loss(img, target)
+        return (val.detach(),) + torch.autograd.grad(val, [p["center"],
+                                                           p["color"]])
+
+    mesh4 = make_mesh(4, device=dev)
+    res = {}
+    for name, mesh in (("single device", None), ("4 shards", mesh4)):
+        reset()
+        res[name] = loss_and_grads(mesh)
+        torch.cuda.synchronize()
+        got = read()
+        want = {k: 0 for k in names}
+        want["closest_hit_kernel"] = 2 * BOUNCES * (1 if mesh is None else 4)
+        check(got == want, f"phase 8c: {name} launched {got}, not {want}")
+    one_ms = cuda_ms(lambda: loss_and_grads(None), 5)
+    four_ms = cuda_ms(lambda: loss_and_grads(mesh4), 5)
+    g1 = torch.cat(res["single device"][1:])
+    g4 = torch.cat(res["4 shards"][1:])
+    v1, v4 = res["single device"][0].item(), res["4 shards"][0].item()
+    g_err = (g4 - g1).abs().max().item()
+    g_max = g1.abs().max().item()
+    rel = ((g4 - g1).abs() / g1.abs().clamp_min(1e-30)).max().item()
+    out["8c"] = dict(loss_single=v1, loss_sharded=v4,
+                     grad_single=g1.tolist(), grad_sharded=g4.tolist(),
+                     grad_max_abs_err=g_err, grad_max_rel_err=rel,
+                     fwd_bwd_ms_single=one_ms, fwd_bwd_ms_sharded=four_ms)
+    log(f"phase 8c: scene 1 differentiable {cfg.width}x{cfg.height}x"
+        f"{BOUNCES} on 4 shards: loss {v4:.7g} (single device {v1:.7g}); d/d centre "
+        f"and colour {g4.tolist()} (single {g1.tolist()}); max-abs "
+        f"{g_err:.3g} of largest {g_max:.3g}, max relative {rel:.3g}; "
+        f"fwd+bwd {four_ms:.2f} ms (single device {one_ms:.2f}); "
+        f"{time.perf_counter() - t0:.1f}s")
+    check(bool(torch.isfinite(g4).all()) and bool((g4 != 0).any()),
+          "phase 8c: gradients not finite or all zero")
+    check(abs(v4 - v1) <= 1e-4 * abs(v1) and g_err <= GRAD_RTOL_OF_MAX * g_max,
+          "phase 8c: the sharded gradients differ from the single device's")
+
+    # -- phase 8d: the dry run ---------------------------------------------
+    t0 = time.perf_counter()
+    out["8d"] = {f"4 shards on {dev}": dryrun_multichip(4, device=dev)}
+    if n_cards > 1:
+        out["8d"][f"{n_cards} cards"] = dryrun_multichip()
+    log(f"phase 8d: dryrun_multichip on 4 shards of {dev}; the multi-card "
+        f"dry run: {multi}; {time.perf_counter() - t0:.1f}s")
+
+    # -- phase 8e: the examples' fits ---------------------------------------
+    fits = {}
+    fit_out = tempfile.mkdtemp(prefix="chip_smoke_fits_")
+    for flag, fn, lr in (("--kernel", inverse.main_kernel, 0.1),
+                         ("--kernel-camera", inverse.main_kernel_camera,
+                          0.02)):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):   # the records
+            rec = fn(SMOKE_FIT_STEPS, lr, out=fit_out, device=dev,
+                     strict=False)
+        errs = {k: rec[k] for k in ("center_err", "pos_err", "yaw_err_deg",
+                                    "pitch_err_deg") if k in rec}
+        fits[flag] = dict(steps=SMOKE_FIT_STEPS, lr=lr,
+                          loss_first=rec["loss_first"],
+                          loss_last=rec["loss_last"],
+                          loss_best=rec.get("loss_best", rec["loss_last"]),
+                          checks_passed=rec["passed"],
+                          wall_s=time.perf_counter() - t0, **errs)
+        log(f"phase 8e: {flag} at {SMOKE_FIT_STEPS} steps: loss "
+            f"{rec['loss_first']:.6g} -> {rec['loss_last']:.6g}, recovery "
+            f"errors {errs}, the example's checks passed: {rec['passed']}; "
+            f"{time.perf_counter() - t0:.1f}s")
+        check(fits[flag]["loss_best"] < rec["loss_first"],
+              f"phase 8e: {flag}: the loss did not fall")
+    shutil.rmtree(fit_out)
+    out["8e"] = fits
+    return out
+
+
+def no_sync(fn):
+    """fn() under sync debug mode "error": a host sync raises."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def syncs(fn):
+    """The host syncs that fn() makes (sync debug mode "warn")."""
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def fmt_bytes(n):

@@ -8,6 +8,8 @@
 //   pixel) and consume_state (one thread per given ray: o, d, [atten] and
 //   the image-order pixel index, from which the background is re-derived;
 //   it may emit again). The hybrid launches it on a re-sorted ray stream.
+//   Raygen may trace a window of image rows (a strip of a strip-sharded
+//   frame, parallel/sharding.py), whose offset rides the parameter row.
 //   A warp traces its 32 pixels (an 8x4 patch) or rays in lockstep
 //   (raytrace.cuh::warp_trace): one vote a bounce while some ray lives;
 //   per bounce the closest hit by closest_hit_kernel's split walk, the id
@@ -149,8 +151,11 @@ struct CardWarp {
 // wholeframe_kernel: the lockstep frame trace (raytrace.cuh::warp_trace),
 // one warp of 32 pixels or rays (trace_entry). Every thread of a warp
 // stays to the end: a thread past the frame or the rays is a lane that
-// never walks, and only its stores are skipped. out: (n, 3) colours, in
-// image order in raygen mode (n = W * H). state (emit): 9 rows of n
+// never walks, and only its stores are skipped. In raygen mode the grid
+// covers a window of `rows` image rows from row y_off (par[20]) of the
+// H-row image: a strip of a strip-sharded frame (rows = H and y_off = 0
+// for a whole frame). out: (n, 3) colours, in window order in raygen mode
+// (n = W * rows). state (emit): 9 rows of n
 // floats, o, d, atten. stats: the lanes' pre-pass, node and triangle tests
 // (0-2; closest walks and shadow legs) and the warps' node and row steps
 // (3, 4). At least 4 blocks an SM lets ptxas use up to 128 registers: it
@@ -165,11 +170,12 @@ wholeframe_kernel(Tables s, const float* __restrict__ tab,
                   const float* __restrict__ rays, int n_rows,
                   const int* __restrict__ ret, int n,
                   float* __restrict__ out, float* __restrict__ state,
-                  int W, int H, Shade sh, unsigned long long* stats) {
+                  int W, int H, int rows, Shade sh,
+                  unsigned long long* stats) {
   __shared__ __align__(16) float rows_buf[BLOCK / 32][2 * SPLIT_CHUNK_FLOATS];
   TraceLane a;
   int i = trace_entry<CONSUME>(a, load_params(par), rays, n_rows, ret, n, W,
-                               H, (int)blockIdx.x, (int)blockIdx.y,
+                               H, rows, (int)blockIdx.x, (int)blockIdx.y,
                                (int)threadIdx.x);
   WarpCounts wc = {0u, 0u};
   warp_trace<CardWarp, TRI>(s, tab, par, sh, &a, nullptr,
@@ -444,9 +450,10 @@ int rt_wholeframe(const int* leaf_start, const int* leaf_count,
                   const float* tri, int m, int n_other, int n_sph,
                   const float* tab, const float* par, const float* rays,
                   int n_rows, const int* ret, int n, float* out,
-                  float* state, int W, int H, int bounces, float shadow_eps,
-                  float reflect_eps, int use_fresnel, int enable_shadows,
-                  int tri_mode, unsigned long long* stats, void* stream) {
+                  float* state, int W, int H, int rows, int bounces,
+                  float shadow_eps, float reflect_eps, int use_fresnel,
+                  int enable_shadows, int tri_mode,
+                  unsigned long long* stats, void* stream) {
   rt::Tables s = {leaf_start, leaf_count, skip, nodes, pre, tri,
                   m, n_other, n_sph};
   rt::Shade sh = {bounces, shadow_eps, reflect_eps, use_fresnel != 0,
@@ -455,11 +462,11 @@ int rt_wholeframe(const int* leaf_start, const int* leaf_count,
   if (consume && (n_rows != 6 && n_rows != 9)) return (int)cudaErrorInvalidValue;
   dim3 grid = consume ? dim3((n + rt::BLOCK - 1) / rt::BLOCK)
                       : dim3((W + rt::TILE_W - 1) / rt::TILE_W,
-                             (H + rt::TILE_H - 1) / rt::TILE_H);
+                             (rows + rt::TILE_H - 1) / rt::TILE_H);
   cudaStream_t st = (cudaStream_t)stream;
 #define RT_LAUNCH(TRI, C, E)                                               \
   rt::wholeframe_kernel<TRI, C, E><<<grid, rt::BLOCK, 0, st>>>(             \
-      s, tab, par, rays, n_rows, ret, n, out, state, W, H, sh, stats)
+      s, tab, par, rays, n_rows, ret, n, out, state, W, H, rows, sh, stats)
 #define RT_MODES(TRI)                                                      \
   if (consume) {                                                           \
     if (emit) RT_LAUNCH(TRI, true, true); else RT_LAUNCH(TRI, true, false); \

@@ -1555,17 +1555,22 @@ __device__ __forceinline__ void add_counts(Counts& a, const Counts& b) {
 
 // The entry of thread tid of block (bx, by) of wholeframe_kernel's grid:
 // in raygen mode pixel (bx * TILE_W + tid % TILE_W, by * TILE_H + tid /
-// TILE_W); in consume mode ray bx * BLOCK + tid of the n given (rays:
-// n_rows (6 or 9) rows of n floats, o, d and, with 9 rows, the entry
-// attenuation, else 1; ret: their image-order pixel indices y * W + x,
-// from which the background is re-derived). Returns the pixel's index y *
-// W + x or the ray's (n = W * H or the rays' count: an int), or -1 for a
-// thread past the frame or the rays: its lane starts dead and never walks.
+// TILE_W) of the window of `rows` image rows that starts at image row
+// q.y_off (rows = H and y_off = 0: the whole frame); in consume mode ray
+// bx * BLOCK + tid of the n given (rays: n_rows (6 or 9) rows of n
+// floats, o, d and, with 9 rows, the entry attenuation, else 1; ret:
+// their window-order pixel indices y * W + x, from which the background
+// is re-derived). The primary ray and the background of window row y are
+// those of image row y + y_off of the H-row image. Returns the pixel's
+// index y * W + x within the window or the ray's (n = W * rows or the
+// rays' count: an int), or -1 for a thread past the window or the rays:
+// its lane starts dead and never walks.
 template <bool CONSUME>
 __device__ __forceinline__ int trace_entry(TraceLane& a, const Params& q,
                                            const float* rays, int n_rows,
                                            const int* ret, int n, int W,
-                                           int H, int bx, int by, int tid) {
+                                           int H, int rows, int bx, int by,
+                                           int tid) {
   State& st = a.st;
   park(st);
   st.atr = 1.0f; st.atg = 1.0f; st.atb = 1.0f;
@@ -1591,7 +1596,7 @@ __device__ __forceinline__ int trace_entry(TraceLane& a, const Params& q,
   } else {
     int x = bx * TILE_W + tid % TILE_W;
     int y = by * TILE_H + tid / TILE_W;
-    if (x < W && y < H) {
+    if (x < W && y < rows) {
       i = y * W + x;
       primary_ray(q, x, y, W, H, st, a.f_bg);
     }

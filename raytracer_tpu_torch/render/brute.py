@@ -153,12 +153,11 @@ def brute_hit(rows_ext: torch.Tensor, counts, o: torch.Tensor,
     row = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return t, row
-    status = kernels.library().rt_brute(
-        rows_ext.data_ptr(), runs.data_ptr(), runs.shape[0], n_sph, n_pl,
-        n_wall, o.data_ptr(), d.data_ptr(), n, t.data_ptr(), row.data_ptr(),
-        int(use_mt), int(gate_boxes),
-        None if stats is None else stats.data_ptr(), kernels.stream_ptr(dev))
-    kernels.check_status("brute_kernel", status)
+    kernels.launch(
+        "brute_kernel", "rt_brute", dev, rows_ext.data_ptr(), runs.data_ptr(),
+        runs.shape[0], n_sph, n_pl, n_wall, o.data_ptr(), d.data_ptr(), n,
+        t.data_ptr(), row.data_ptr(), int(use_mt), int(gate_boxes),
+        None if stats is None else stats.data_ptr())
     brute_hit.launches += 1
     return t, row
 

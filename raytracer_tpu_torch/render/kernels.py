@@ -6,6 +6,9 @@ build takes seconds. The library is built at first use into
 ``raytracer_tpu_torch/_build/``, keyed by a hash of the sources and flags,
 and reused while they are unchanged. A failed build, a missing library or
 a non-zero launch status raises; nothing falls back to the plain versions.
+Every wrapper launches through ``launch``: with the tensors' card made
+current and on that card's current stream, so that tensors on any card of
+a machine with several are launched from their own card's context.
 
 Flags: ``-fmad=false`` keeps every multiply and add separately rounded, as
 the plain PyTorch versions compute them, so triangle-edge accepts and t
@@ -15,6 +18,7 @@ on 1/0 = inf).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -39,7 +43,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TABLES = [_P] * 6 + [_I] * 3   # 6 table pointers + m, n_other, n_sph
 _SIGNATURES = {
     "rt_wholeframe": _TABLES + [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
-                                _F, _F, _I, _I, _I, _P, _P],
+                                _I, _F, _F, _I, _I, _I, _P, _P],
     "rt_closest_hit": _TABLES + [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P],
     "rt_fused": _TABLES + [_P, _P, _P, _I, _F, _P, _P, _P, _I, _P, _P],
     "rt_closest_attrs": _TABLES + [_P, _P, _I, _P, _P, _P, _I, _P, _P],
@@ -155,5 +159,22 @@ def table_args(split, device):
             m, n_other, split.n_sph]
 
 
-def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def device_guard(device):
+    """The context in which work for ``device`` is issued: on a CUDA
+    device, that device made current (the library launches on the
+    calling thread's current device); on the CPU, nothing."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def launch(name: str, fn: str, device, *args) -> None:
+    """Call the library's launcher ``fn`` with ``args`` and ``device``'s
+    current stream, with ``device`` current, and raise if kernel
+    ``name`` did not launch. Every wrapper launches through here, so a
+    tensor on any card is launched from that card's context."""
+    with device_guard(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = getattr(library(), fn)(*args, stream)
+    check_status(name, status)

@@ -93,16 +93,14 @@ def _launch(tree: Tree, o, d, max_t, use_mt, t_cull, stats):
     row = torch.empty(n, dtype=torch.int32, device=dev)
     occ = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
-        status = kernels.library().rt_packet(
-            tree.leaf_start.data_ptr(), tree.leaf_count.data_ptr(),
-            tree.skip.data_ptr(), tree.nodes.data_ptr(), tree.rows.data_ptr(),
-            m, o.data_ptr(), d.data_ptr(),
-            None if max_t is None else max_t.data_ptr(), n, t.data_ptr(),
-            row.data_ptr(), occ.data_ptr(), int(use_mt), int(t_cull),
-            None if stats is None else stats.data_ptr(),
-            kernels.stream_ptr(dev))
-        kernels.check_status("packet_kernel" if max_t is None
-                             else "occlusion_kernel", status)
+        kernels.launch(
+            "packet_kernel" if max_t is None else "occlusion_kernel",
+            "rt_packet", dev, tree.leaf_start.data_ptr(),
+            tree.leaf_count.data_ptr(), tree.skip.data_ptr(),
+            tree.nodes.data_ptr(), tree.rows.data_ptr(), m, o.data_ptr(),
+            d.data_ptr(), None if max_t is None else max_t.data_ptr(), n,
+            t.data_ptr(), row.data_ptr(), occ.data_ptr(), int(use_mt),
+            int(t_cull), None if stats is None else stats.data_ptr())
     return (t, row) if max_t is None else occ
 
 

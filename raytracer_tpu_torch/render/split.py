@@ -381,12 +381,11 @@ def closest_hit(split: SplitScene, o: torch.Tensor, d: torch.Tensor,
     if n == 0:
         return t, gid
     args = kernels.table_args(split, dev)
-    status = kernels.library().rt_closest_hit(
-        *args, o.data_ptr(), d.data_ptr(),
-        None if max_t is None else max_t.data_ptr(), n, t.data_ptr(),
-        gid.data_ptr(), int(max_t is not None), tri_mode,
-        None if stats is None else stats.data_ptr(), kernels.stream_ptr(dev))
-    kernels.check_status("closest_hit_kernel", status)
+    kernels.launch(
+        "closest_hit_kernel", "rt_closest_hit", dev, *args, o.data_ptr(),
+        d.data_ptr(), None if max_t is None else max_t.data_ptr(), n,
+        t.data_ptr(), gid.data_ptr(), int(max_t is not None), tri_mode,
+        None if stats is None else stats.data_ptr())
     closest_hit.launches += 1
     return t, gid
 
@@ -444,12 +443,11 @@ def fused(split: SplitScene, o: torch.Tensor, d: torch.Tensor,
     in_shadow = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return t, gid, in_shadow
-    status = kernels.library().rt_fused(
-        *kernels.table_args(split, dev), o.data_ptr(), d.data_ptr(),
-        light_pos.data_ptr(), n, shadow_eps, t.data_ptr(), gid.data_ptr(),
-        in_shadow.data_ptr(), tri_mode,
-        None if stats is None else stats.data_ptr(), kernels.stream_ptr(dev))
-    kernels.check_status("fused_kernel", status)
+    kernels.launch(
+        "fused_kernel", "rt_fused", dev, *kernels.table_args(split, dev),
+        o.data_ptr(), d.data_ptr(), light_pos.data_ptr(), n, shadow_eps,
+        t.data_ptr(), gid.data_ptr(), in_shadow.data_ptr(), tri_mode,
+        None if stats is None else stats.data_ptr())
     fused.launches += 1
     return t, gid, in_shadow
 
@@ -504,10 +502,9 @@ def resolve(attr_tab: torch.Tensor, gid: torch.Tensor,
     out = torch.empty((N_ATTRS, n), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    status = kernels.library().rt_resolve(
-        attr_tab.data_ptr(), attr_tab.shape[0], gid.data_ptr(), p.data_ptr(),
-        n, out.data_ptr(), kernels.stream_ptr(dev))
-    kernels.check_status("resolve_kernel", status)
+    kernels.launch("resolve_kernel", "rt_resolve", dev, attr_tab.data_ptr(),
+                   attr_tab.shape[0], gid.data_ptr(), p.data_ptr(), n,
+                   out.data_ptr())
     resolve.launches += 1
     return out
 
@@ -553,11 +550,11 @@ def closest_hit_attrs(split: SplitScene, o: torch.Tensor, d: torch.Tensor,
     attrs = torch.empty((N_ATTRS, n), dtype=torch.float32, device=dev)
     if n == 0:
         return t, gid, attrs
-    status = kernels.library().rt_closest_attrs(
+    kernels.launch(
+        "closest_attrs_kernel", "rt_closest_attrs", dev,
         *kernels.table_args(split, dev), o.data_ptr(), d.data_ptr(), n,
         t.data_ptr(), gid.data_ptr(), attrs.data_ptr(), tri_mode,
-        None if stats is None else stats.data_ptr(), kernels.stream_ptr(dev))
-    kernels.check_status("closest_attrs_kernel", status)
+        None if stats is None else stats.data_ptr())
     closest_hit_attrs.launches += 1
     return t, gid, attrs
 
@@ -613,20 +610,26 @@ def make_closest_hit(split: SplitScene, cfg: RenderConfig):
     return closest
 
 
-def _trace_frame(scene, split: SplitScene, camera, light,
-                 cfg: RenderConfig,
-                 differentiable: bool = False) -> torch.Tensor:
-    """The per-bounce route: ``whitted.trace`` over image-order primary
-    rays. By default with the fused closest+shadow launch (the closest-hit
-    launch when shadows are off) and the attribute resolve. With
-    ``USE_KERNEL_ATTRS``: the closest hit with its attributes, kernel 2
-    for the shadow rays. With ``differentiable``: kernel 2 for every
-    query, t re-derived in autograd, attributes by the row gather."""
+def primary_rays(camera, cfg: RenderConfig):
+    """The frame's image-order primary rays and backgrounds: (o, d, bg),
+    each (H * W, 3) f32 on the camera's device."""
     h, w = cfg.height, cfg.width
     o, d = camera_rays(camera, w, h)
     o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
     ys = div_rn(torch.arange(h, dtype=torch.float32, device=o.device), h)
     bg = torch.broadcast_to(shading.background(ys)[:, None, :], (h, w, 3))
+    return o, d, bg.reshape(-1, 3)
+
+
+def trace_rays(scene, split: SplitScene, light, o, d, bg,
+               cfg: RenderConfig, differentiable: bool = False):
+    """The per-bounce route's trace of the rays o, d (R, 3) with
+    backgrounds bg: ``whitted.trace``, by default with the fused
+    closest+shadow launch (the closest-hit launch when shadows are off)
+    and the attribute resolve. With ``USE_KERNEL_ATTRS``: the closest hit
+    with its attributes, kernel 2 for the shadow rays. With
+    ``differentiable``: kernel 2 for every query, t re-derived in
+    autograd, attributes by the row gather. Returns (R, 3)."""
     closest = make_closest_hit(split, cfg)
     fused_fn, resolve_fn = closest.fused_shadow, make_attr_resolver(cfg)
     if differentiable:
@@ -639,9 +642,19 @@ def _trace_frame(scene, split: SplitScene, camera, light,
     elif USE_KERNEL_ATTRS:
         closest = closest.with_attrs
         fused_fn = resolve_fn = None
-    colors = whitted.trace(scene, light, closest, o, d, bg.reshape(-1, 3),
-                           cfg, fused_fn=fused_fn, resolve_fn=resolve_fn)
-    return colors.reshape(h, w, 3)
+    return whitted.trace(scene, light, closest, o, d, bg, cfg,
+                         fused_fn=fused_fn, resolve_fn=resolve_fn)
+
+
+def _trace_frame(scene, split: SplitScene, camera, light,
+                 cfg: RenderConfig,
+                 differentiable: bool = False) -> torch.Tensor:
+    """The per-bounce route (``trace_rays``) over image-order primary
+    rays: (H, W, 3)."""
+    o, d, bg = primary_rays(camera, cfg)
+    colors = trace_rays(scene, split, light, o, d, bg, cfg,
+                        differentiable=differentiable)
+    return colors.reshape(cfg.height, cfg.width, 3)
 
 
 def _render_impl(scene, split: SplitScene, camera, light,
@@ -672,13 +685,20 @@ def _render_impl(scene, split: SplitScene, camera, light,
     ``USE_KERNEL_ATTRS``; for ``USE_OCCLUSION``, ``USE_FUSED_SHADOW`` and
     ``USE_RESOLVE_KERNEL`` it takes their production settings."""
     from raytracer_tpu_torch.render import wholeframe
-    if differentiable or USE_KERNEL_ATTRS:
-        return _trace_frame(scene, split, camera, light, cfg,
-                            differentiable=differentiable)
-    if wholeframe.USE_WHOLEFRAME and (not cfg.sort_bounces
-                                      or cfg.max_bounces >= 2):
+    if wholeframe_route_ok(cfg, differentiable):
         return wholeframe._render_blocks(scene, split, camera, light, cfg)
-    return _trace_frame(scene, split, camera, light, cfg)
+    return _trace_frame(scene, split, camera, light, cfg,
+                        differentiable=differentiable)
+
+
+def wholeframe_route_ok(cfg: RenderConfig, differentiable: bool) -> bool:
+    """Whether ``_render_impl`` takes the whole-frame route (the
+    one-launch frame or the hybrid) for ``cfg``, rather than the
+    per-bounce route."""
+    from raytracer_tpu_torch.render import wholeframe
+    if differentiable or USE_KERNEL_ATTRS or not wholeframe.USE_WHOLEFRAME:
+        return False
+    return not cfg.sort_bounces or cfg.max_bounces >= 2
 
 
 def render(scene, bvh, camera, light, cfg: RenderConfig,

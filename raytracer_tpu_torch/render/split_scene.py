@@ -168,14 +168,18 @@ class SplitScene:
                 self.pre_rows, self.tri_rows)
 
     def to(self, device) -> "SplitScene":
+        """A copy on ``device``. Its tables hold the values that were
+        checked when this split was made, so the copy is not checked
+        again (which would copy the int tables to the host and wait for
+        the card)."""
         if self.device == resolve_device(device):
             return self
-        moved = {f.name: getattr(self, f.name) for f in
-                 dataclasses.fields(self) if f.init}
-        for k, v in moved.items():
+        new = copy.copy(self)
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
             if isinstance(v, torch.Tensor):
-                moved[k] = v.to(device)
-        return SplitScene(**moved)
+                setattr(new, f.name, v.to(device))
+        return new
 
     def replace_tables(self, **tables) -> "SplitScene":
         """A copy with the named float tables (nodes, pre_rows, tri_rows)

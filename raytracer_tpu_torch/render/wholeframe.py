@@ -24,8 +24,12 @@
   re-derived with the raygen arithmetic. A parked ray (ox >= 1e30) adds
   nothing. It may emit again.
 
-On a CPU tensor the wrapper runs ``wholeframe_plain``, the same function
-in PyTorch.
+Every mode may serve a window: ``rows`` image rows from image row
+``y_off`` (slot 20 of the parameter row), whose primary rays and
+backgrounds are those of the whole image; the results are in window
+order. A strip-sharded frame (parallel/sharding.py) renders one window a
+shard. On a CPU tensor the wrapper runs ``wholeframe_plain``, the same
+function in PyTorch.
 
 ``_render_blocks`` is the whole-frame route of ``render()``: the one-launch
 frame, or, with ``cfg.sort_bounces`` and at least 2 bounces, the hybrid
@@ -65,16 +69,19 @@ PAR_W = 24  # light pos(3) + color(3), camera pos/front/right/up, half_w,
 N_STATE = 9  # o(3), d(3), atten(3)
 
 
-def make_params(camera, light) -> torch.Tensor:
-    """The (24,) f32 parameter row of the JAX kernel's raygen mode (its
-    pixel-row offset, slot 20, serves strip sharding, not ported yet: 0)."""
+def make_params(camera, light, y_off: float = 0.0) -> torch.Tensor:
+    """The (24,) f32 parameter row of the JAX kernel's raygen mode; slot
+    20 is the pixel-row offset ``y_off`` of a window (a strip of a
+    strip-sharded frame, parallel/sharding.py), 0 for a whole frame."""
     half_w, half_h = camera.half_extent()
     dev = camera.device
     return torch.cat([
         light.position, light.color, camera.position, camera.front,
         camera.right, camera.up, torch.stack([half_w, half_h]).reshape(2),
-        torch.zeros(4, dtype=torch.float32,
-                     device=dev)]).to(torch.float32).contiguous()
+        # filled on the device: a host-to-device copy would wait for it
+        torch.full((1,), float(y_off), dtype=torch.float32, device=dev),
+        torch.zeros(3, dtype=torch.float32,
+                    device=dev)]).to(torch.float32).contiguous()
 
 
 def _background(yi, h_img):
@@ -192,18 +199,21 @@ def wholeframe_plain(split: SplitScene, attr_tab: torch.Tensor,
                      pixels: Optional[torch.Tensor] = None, *,
                      bounces: Optional[int] = None, emit_state: bool = False,
                      rays: Optional[torch.Tensor] = None,
-                     ret: Optional[torch.Tensor] = None):
+                     ret: Optional[torch.Tensor] = None,
+                     rows: Optional[int] = None):
     """Plain version of ``wholeframe_kernel`` in all its modes (see
-    ``wholeframe``). In raygen mode it traces every pixel (colours (H, W,
-    3)) or only the given flat pixel indices y * W + x (colours
-    (len(pixels), 3)); in consume mode the given rays (colours (R, 3)).
-    With ``emit_state`` it returns (colours, state (9, R))."""
+    ``wholeframe``). In raygen mode it traces every pixel of the window
+    of ``rows`` rows (colours (rows, W, 3)) or only the given flat window
+    pixel indices y * W + x (colours (len(pixels), 3)); in consume mode
+    the given rays (colours (R, 3)). With ``emit_state`` it returns
+    (colours, state (9, R))."""
     w_img, h_img = cfg.width, cfg.height
+    rows = h_img if rows is None else rows
     dev = par.device
     p = [par[i] for i in range(21)]
     y_off = p[20]
     if rays is None:
-        pix = (torch.arange(w_img * h_img, device=dev) if pixels is None
+        pix = (torch.arange(w_img * rows, device=dev) if pixels is None
                else pixels.to(device=dev, dtype=torch.int64))
         cpx, cpy, cpz, fx_, fy_, fz_ = p[6:12]
         rx_, ry_, rz_, ux_, uy_, uz_ = p[12:18]
@@ -231,7 +241,7 @@ def wholeframe_plain(split: SplitScene, attr_tab: torch.Tensor,
                               st, _background(yi, h_img))
     out = torch.stack(acc, dim=-1)
     if rays is None and pixels is None:
-        out = out.reshape(h_img, w_img, 3)
+        out = out.reshape(rows, w_img, 3)
     return (out, torch.stack(state)) if emit_state else out
 
 
@@ -239,16 +249,23 @@ def wholeframe(split: SplitScene, attr_tab: torch.Tensor, par: torch.Tensor,
                cfg: RenderConfig, *, bounces: Optional[int] = None,
                emit_state: bool = False, rays: Optional[torch.Tensor] = None,
                ret: Optional[torch.Tensor] = None,
-               stats: Optional[torch.Tensor] = None):
-    """One launch of ``wholeframe_kernel`` on the current stream (on a CPU
-    tensor: ``wholeframe_plain``) for ``bounces`` bounces (default
-    cfg.max_bounces).
+               stats: Optional[torch.Tensor] = None,
+               rows: Optional[int] = None):
+    """One launch of ``wholeframe_kernel`` on the current stream of
+    ``par``'s device (on a CPU tensor: ``wholeframe_plain``) for
+    ``bounces`` bounces (default cfg.max_bounces).
 
-    Raygen mode (``rays`` None): returns the frame (H, W, 3) f32. Consume
-    mode: ``rays`` (6 or 9, R) f32 rows o, d[, atten] and ``ret`` (R,)
-    int32 image-order pixel indices; returns (R, 3). With ``emit_state``
-    it returns (colours, state (9, R) f32 rows o, d, atten), R = W * H in
-    raygen mode, in image order. ``stats``, an int64 (5,) tensor on the
+    The window: ``rows`` image rows (default cfg.height, the whole
+    frame) from image row ``par[20]`` (``make_params``' ``y_off``) of
+    the cfg.height-row image; a strip of a strip-sharded frame. The
+    primary rays and backgrounds are the image's.
+
+    Raygen mode (``rays`` None): returns the window (rows, W, 3) f32.
+    Consume mode: ``rays`` (6 or 9, R) f32 rows o, d[, atten] and ``ret``
+    (R,) int32 window-order pixel indices; returns (R, 3). With
+    ``emit_state`` it returns (colours, state (9, R) f32 rows o, d,
+    atten), R = W * rows in raygen mode, in window order. ``stats``, an
+    int64 (5,) tensor on the
     card, receives the counts of pre-pass, node and triangle tests (the
     closest walks' and the shadow legs', summed over the rays), then of
     the warps' node steps and row steps (the kernel traces a warp's 32
@@ -256,13 +273,16 @@ def wholeframe(split: SplitScene, attr_tab: torch.Tensor, par: torch.Tensor,
     dev = par.device
     if dev.type == "cpu":
         return wholeframe_plain(split, attr_tab, par, cfg, bounces=bounces,
-                                emit_state=emit_state, rays=rays, ret=ret)
+                                emit_state=emit_state, rays=rays, ret=ret,
+                                rows=rows)
     if dev.type != "cuda":
         raise ValueError(f"wholeframe: unsupported device {dev}")
     w_img, h_img = cfg.width, cfg.height
+    rows = h_img if rows is None else rows
     bounces = cfg.max_bounces if bounces is None else bounces
-    if w_img <= 0 or h_img <= 0 or bounces < 0:
-        raise ValueError("width, height must be positive, bounces >= 0")
+    if w_img <= 0 or h_img <= 0 or rows <= 0 or bounces < 0:
+        raise ValueError("width, height, rows must be positive, "
+                         "bounces >= 0")
     kernels.check_tensor("par", par, torch.float32, dev, (PAR_W,))
     kernels.check_tensor("attr_tab", attr_tab, torch.float32, dev,
                          (None, whitted.ATTR_W))
@@ -272,8 +292,8 @@ def wholeframe(split: SplitScene, attr_tab: torch.Tensor, par: torch.Tensor,
     if rays is None:
         if ret is not None:
             raise ValueError("ret is given without rays")
-        n, n_rows = w_img * h_img, 0
-        out = torch.empty((h_img, w_img, 3), dtype=torch.float32, device=dev)
+        n, n_rows = w_img * rows, 0
+        out = torch.empty((rows, w_img, 3), dtype=torch.float32, device=dev)
     else:
         n_rows, n = rays.shape if rays.dim() == 2 else (None, None)
         if n_rows not in (6, 9):
@@ -287,26 +307,28 @@ def wholeframe(split: SplitScene, attr_tab: torch.Tensor, par: torch.Tensor,
     state = torch.empty((N_STATE, n), dtype=torch.float32, device=dev) \
         if emit_state else None
     if n:
-        status = kernels.library().rt_wholeframe(
+        kernels.launch(
+            "wholeframe_kernel", "rt_wholeframe", dev,
             *kernels.table_args(split, dev), attr_tab.data_ptr(),
             par.data_ptr(), None if rays is None else rays.data_ptr(),
             n_rows, None if ret is None else ret.data_ptr(), n,
             out.data_ptr(), None if state is None else state.data_ptr(),
-            w_img, h_img, bounces, cfg.shadow_eps, cfg.reflect_eps,
+            w_img, h_img, rows, bounces, cfg.shadow_eps, cfg.reflect_eps,
             int(cfg.use_fresnel), int(cfg.enable_shadows), cfg.tri_mode,
-            None if stats is None else stats.data_ptr(),
-            kernels.stream_ptr(dev))
-        kernels.check_status("wholeframe_kernel", status)
+            None if stats is None else stats.data_ptr())
         wholeframe.launches += 1
         mode = ("consume" if rays is not None else "raygen") + \
-            ("+emit" if emit_state else "")
+            ("+emit" if emit_state else "") + \
+            (" window" if rows != h_img else "")
         wholeframe.mode_launches[mode] = \
             wholeframe.mode_launches.get(mode, 0) + 1
     return (out, state) if emit_state else out
 
 
 wholeframe.launches = 0
-wholeframe.mode_launches = {}   # launches by mode: raygen[+emit], consume[+emit]
+# launches by mode: raygen[+emit], consume[+emit], each with " window" where
+# the launch serves a window of fewer or more rows than the image's
+wholeframe.mode_launches = {}
 
 
 def _repack(state: torch.Tensor, rows: int):
@@ -326,7 +348,7 @@ def _unsort(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
 
 
 def _hybrid(split: SplitScene, attr_tab: torch.Tensor, par: torch.Tensor,
-            cfg: RenderConfig) -> torch.Tensor:
+            cfg: RenderConfig, rows: Optional[int] = None) -> torch.Tensor:
     """The sorted-continuation hybrid (wholeframe.py:594-686). Without
     ``second_sort`` (the JAX ``SLIM_SORT`` route, 2 launches): only o, d
     and the pixel index are re-packed; the continuation accumulates
@@ -334,41 +356,46 @@ def _hybrid(split: SplitScene, attr_tab: torch.Tensor, par: torch.Tensor,
     in image order. With ``second_sort`` the full state is re-packed (the
     continuation starts from the entry attenuation) and, from 3 bounces
     on, bounce 2 runs alone (consume + emit) before a second re-pack and
-    a continuation over bounces 3..n (3 launches)."""
-    h_img, w_img, nb = cfg.height, cfg.width, cfg.max_bounces
+    a continuation over bounces 3..n (3 launches). ``rows``: the window
+    of ``wholeframe`` (the re-sorts stay within it)."""
+    rows = cfg.height if rows is None else rows
+    w_img, nb = cfg.width, cfg.max_bounces
     acc1, state = wholeframe(split, attr_tab, par, cfg, bounces=1,
-                             emit_state=True)
+                             emit_state=True, rows=rows)
     acc1 = acc1.reshape(-1, 3)
     if not cfg.second_sort:
         rays, perm = _repack(state, 6)
         rel = wholeframe(split, attr_tab, par, cfg, bounces=nb - 1,
-                         rays=rays, ret=perm.to(torch.int32))
+                         rays=rays, ret=perm.to(torch.int32), rows=rows)
         colors = acc1 + state[6:9].t() * _unsort(rel, perm)
-        return colors.reshape(h_img, w_img, 3)
+        return colors.reshape(rows, w_img, 3)
     rays, perm = _repack(state, N_STATE)
     ret = perm.to(torch.int32)
     if nb >= 3:
         acc2, st2 = wholeframe(split, attr_tab, par, cfg, bounces=1,
-                               emit_state=True, rays=rays, ret=ret)
+                               emit_state=True, rays=rays, ret=ret,
+                               rows=rows)
         rays2, perm2 = _repack(st2, N_STATE)
         accc = wholeframe(split, attr_tab, par, cfg, bounces=nb - 2,
-                          rays=rays2, ret=ret[perm2])
+                          rays=rays2, ret=ret[perm2], rows=rows)
         tail, perm = accc + acc2[perm2], perm[perm2]
     else:
         tail = wholeframe(split, attr_tab, par, cfg, bounces=nb - 1,
-                          rays=rays, ret=ret)
-    return (acc1 + _unsort(tail, perm)).reshape(h_img, w_img, 3)
+                          rays=rays, ret=ret, rows=rows)
+    return (acc1 + _unsort(tail, perm)).reshape(rows, w_img, 3)
 
 
 def _render_blocks(scene, split: SplitScene, camera, light,
-                   cfg: RenderConfig) -> torch.Tensor:
+                   cfg: RenderConfig, rows: Optional[int] = None,
+                   y_off: float = 0.0) -> torch.Tensor:
     """The whole-frame route (the JAX function of this name): the hybrid
     when ``cfg.sort_bounces`` and ``cfg.max_bounces >= 2``, else the
-    one-launch frame. The port's kernel writes image order directly, so
-    there are no pixel blocks to un-block; the name is kept so the
-    counterpart is easy to find."""
+    one-launch frame, of the window of ``rows`` image rows (default
+    cfg.height) from image row ``y_off``: (rows, W, 3). The port's kernel
+    writes window order directly, so there are no pixel blocks to
+    un-block; the name is kept so the counterpart is easy to find."""
     attr_tab = whitted._attr_table(scene)
-    par = make_params(camera, light)
+    par = make_params(camera, light, y_off)
     if cfg.sort_bounces and cfg.max_bounces >= 2:
-        return _hybrid(split, attr_tab, par, cfg)
-    return wholeframe(split, attr_tab, par, cfg)
+        return _hybrid(split, attr_tab, par, cfg, rows)
+    return wholeframe(split, attr_tab, par, cfg, rows=rows)

@@ -357,9 +357,9 @@ static void frame_all(const rt::Tables& s, const float* tab,
         for (int l = 0; l < 32; ++l)
           idx[l] = consume
               ? rt::trace_entry<true>(ln[l], q, rays, n_rows, ret, n, W, H,
-                                      bx, by, 32 * w + l)
+                                      H, bx, by, 32 * w + l)
               : rt::trace_entry<false>(ln[l], q, rays, n_rows, ret, n, W, H,
-                                       bx, by, 32 * w + l);
+                                       H, bx, by, 32 * w + l);
         if (how == 0) {
           rt::WarpCounts wc = {0u, 0u};
           rt::warp_trace<HostWarp, TRI>(s, tab, par, sh, ln, cs, buf, wc);
