@@ -21,7 +21,14 @@ route of scenes 1 and 2, held against the per-bounce frame; the
 differentiable route (render(differentiable=True)) of scene 1 with the
 loss and gradients of bench.py's grad leg, held against the same
 gradients through the plain closest hit; 5 steps of
-diff.fit_scene_params through diff.make_kernel_renderer; and the animated
+diff.fit_scene_params through diff.make_kernel_renderer, each with its
+launches of closest_hit_kernel and of the row gather's kernels
+(gather_rows_kernel and row_grads_kernel, render/row_gather.py); the row
+gather on the grad leg's own tables, ids and gradients (phase 5h: the
+forward bit for bit index_select, the backward bit for bit index_add_ on
+exact gradients at the same ids and within a bar of the float64 sum on
+its own, its counts of rays and row adds, the loss and gradients against
+those through index_select); and the animated
 frame loop (render/dynamic.py, phases 6-6d): the LBVH rebuilt on the card
 from animated scenes 1 and 2, equal to the CPU build with no host sync
 from the animation to the packet tree, packet_kernel and
@@ -54,7 +61,9 @@ kernels' warp node and row steps and SIMD efficiency (wholeframe_kernel
 in its three modes, closest_hit_kernel, packet_kernel, occlusion_kernel,
 fused_kernel with its closest and shadow legs apart, the closest leg's
 counts taken from closest_hit_kernel on the same rays,
-closest_attrs_kernel), the frames by CUDA events, and prints one
+closest_attrs_kernel), gather_rows_kernel and row_grads_kernel on the
+grad leg's largest calls beside index_select and index_add_, the frames
+by CUDA events, and prints one
 JSON line of the kernels and, last, {"ok": true, "device": {...}}. Any
 failed check raises, so the script exits non-zero and prints no result.
 Without a CUDA device it exits non-zero at once.
@@ -129,6 +138,13 @@ KERNEL_ATTRS_MAX_FRACTION = 1e-4
 # this share of the largest component (the backward's scatter-adds may
 # sum in any order).
 GRAD_RTOL_OF_MAX = 1e-4
+# The row gather's backward (row_grads_kernel) sums in another order than
+# index_add_: each row of its result within ROW_RTOL of the row's summed
+# magnitudes (the norm of sum |g|) of the float64 sum; the leaves'
+# gradients within LEAF_RTOL (relative norm) of those through index_select,
+# whose index_add_ rows lie up to ~2e-3 from the float64 sum at full HD
+# (tests/test_torch_row_gather_card.py)
+ROW_RTOL, LEAF_RTOL = 1e-4, 1e-2
 FIT_STEPS, FIT_LR = 5, 4.0
 # The animated streams (phases 6-6d): a frame's delta time; the animated
 # states that phase 6 rebuilds the LBVH of (scene 1's spheres bounced to
@@ -164,7 +180,8 @@ def main() -> int:
     from raytracer_tpu_torch.geom.direct import INF
     from raytracer_tpu_torch.accel.linearize import shape_leaf_boxes
     from raytracer_tpu_torch.render import (brute, kernels, packet,
-                                            split_scene, wavefront, whitted)
+                                            row_gather, split_scene,
+                                            wavefront, whitted)
     from raytracer_tpu_torch import diff as rt_diff
     from raytracer_tpu_torch.render import split as split_mod
     from raytracer_tpu_torch.render import wholeframe as wf
@@ -216,12 +233,15 @@ def main() -> int:
     gen = torch.Generator().manual_seed(1234)
     names = ("wholeframe_kernel", "closest_hit_kernel", "fused_kernel",
              "resolve_kernel", "packet_kernel", "occlusion_kernel",
-             "brute_kernel", "closest_attrs_kernel")
+             "brute_kernel", "closest_attrs_kernel", "gather_rows_kernel",
+             "row_grads_kernel")
     err = {k: 0.0 for k in names}
     held = {k: [] for k in names}
     counters = dict(zip(names, (wf.wholeframe, closest_hit, fused, resolve,
                                 packet.packet_hit, packet.occlusion,
-                                brute.brute_hit, closest_hit_attrs)))
+                                brute.brute_hit, closest_hit_attrs,
+                                row_gather.gather_rows,
+                                row_gather.row_grads)))
 
     # -- phase 3: closest_hit_kernel against closest_hit_plain ----------------
     t = time.perf_counter()
@@ -857,11 +877,16 @@ def main() -> int:
         val = grad_loss(p0)
         return (val,) + torch.autograd.grad(val, [p0["center"], p0["color"]])
 
+    # an evaluation gathers the attribute rows and the packed rows of the
+    # hit and shadow queries each bounce; the shadow rays' t only decides a
+    # comparison, so their rows get no gradient and no backward launch
+    want_grad = dict(want, gather_rows_kernel=3 * BOUNCES,
+                     row_grads_kernel=2 * BOUNCES)
     reset()
     val, g_center, g_color = loss_and_grads()
     torch.cuda.synchronize()
     got = read()
-    check(got == want, f"the grad leg launched {got}, not {want}")
+    check(got == want_grad, f"the grad leg launched {got}, not {want_grad}")
     grads = torch.cat([g_center, g_color])
     closest_kernel = split_mod.closest_hit
     split_mod.closest_hit = (lambda split_, o_, d_, mode_, max_t=None,
@@ -903,18 +928,25 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         fit_ms.append(start.elapsed_time(end))
-        fit_launches.append(read()["closest_hit_kernel"])
+        got = read()
+        fit_launches.append({k: got[k] for k in ("closest_hit_kernel",
+                                                 "gather_rows_kernel",
+                                                 "row_grads_kernel")})
         fit_hist += hist
     log(f"phase 5g: {FIT_STEPS} SGD steps (lr {FIT_LR:g}) of scene 1's "
         f"sphere 0 centre and colour at {FRAME_W}x{FRAME_H}x{BOUNCES}: loss "
         f"{fit_hist}; ms per step {[round(x, 3) for x in fit_ms]}; "
-        f"closest_hit_kernel launches per step {fit_launches}")
+        f"launches per step {fit_launches}")
     check(all(map(math.isfinite, fit_hist)) and fit_hist[-1] < fit_hist[0],
           "the fit's loss did not fall")
-    check(fit_launches == [2 * BOUNCES] * FIT_STEPS,
-          "a fit step did not launch closest_hit_kernel once a query")
+    want_step = {k: want_grad[k] for k in fit_launches[0]}
+    check(fit_launches == [want_step] * FIT_STEPS,
+          f"a fit step did not launch {want_step}")
     check(all(bool(torch.isfinite(v).all()) for v in params.values()),
           "the fitted parameters are not finite")
+    # -- phase 5h: the row gather on the grad leg's own ids and gradients --
+    gathers, backs, row_gather_calls, rays_per_add = row_gather_paths(
+        loss_and_grads, dev, err, held)
     log(f"main paths: launches {total}, wholeframe_kernel by mode "
         f"{by_mode}")
 
@@ -1406,6 +1438,10 @@ def main() -> int:
            f"{busy:.3f} ms ({ours:.3f} in csrc kernels), idle share "
            f"{1 - busy / fwd_bwd_ms:.3f}"))
 
+    # the row gather's kernels on the grad leg's largest call of each table
+    # (phase 5h), beside their plain versions and index_select / index_add_
+    k_gather, k_grads = row_gather_times(gathers, backs, dev)
+
     # the lockstep kernels' warp steps side by side
     lockstep = {}
     for which in scenes:
@@ -1552,8 +1588,28 @@ def main() -> int:
         kernel_attrs_vs_per_bounce=attrs_err,
         grad_leg=grad_leg,
         fit=dict(steps=FIT_STEPS, lr=FIT_LR, loss=fit_hist, step_ms=fit_ms,
-                 closest_hit_launches_per_step=fit_launches),
+                 launches_per_step=fit_launches),
         held_by=held["closest_attrs_kernel"]))
+    for name, ks, replaces, lib in (
+            ("gather_rows_kernel", k_gather,
+             "raytracer_tpu/diff/kernel_vjp.py:42 and "
+             "raytracer_tpu/render/whitted.py:174 (jnp.take)",
+             "index_select"),
+            ("row_grads_kernel", k_grads, "the backward of those jnp.take "
+             "(XLA's scatter-add)", "index_add_")):
+        top = ks[max(ks)]   # the packed rows' 24 columns
+        rows.append(dict(
+            name=name, route="cuda",
+            source="raytracer_tpu_torch/csrc/raytrace.cu",
+            replaces=replaces, launches=total[name], max_abs_err=err[name],
+            ms=top["ms"], device_ms=top["device_ms"],
+            plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"], library_ms=top["library_ms"],
+            library_device_ms=top["library_device_ms"], library=lib,
+            per_table={str(w): k for w, k in ks.items()},
+            held_by=held[name]))
+    rows[-1]["calls"] = row_gather_calls
+    rows[-1]["rays_per_add"] = rays_per_add
     log(f"done in {time.perf_counter() - T0:.1f}s")
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -1561,6 +1617,213 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def row_gather_paths(loss_and_grads, dev, err, held):
+    """Phase 5h: one evaluation of the grad leg (``loss_and_grads``, scene
+    1) with row_gather's wrappers recording their tables, ids and
+    gradients, and one through index_select's views (``engages`` off).
+    Holds every gather bit for bit against index_select; every backward
+    call bit for bit against index_add_ on exact gradients at its ids (its
+    stats: the rays with a gradient that is not zero), and within ROW_RTOL
+    of each row's summed magnitudes of the float64 sum on its own
+    gradients; the loss bit for bit and the leaves' gradients within
+    LEAF_RTOL of index_select's path. Returns (the gathers, the backward
+    calls, each backward call's counts and gaps, rays a row add)."""
+    import torch
+    from raytracer_tpu_torch.render import row_gather
+    t = time.perf_counter()
+    gathers, backs = [], []
+    real_gather, real_grads = row_gather.gather_rows, row_gather.row_grads
+
+    def gather_seen(table, sid, widths):
+        gathers.append((table.detach(), sid, widths))
+        return real_gather(table, sid, widths)
+
+    def grads_seen(grads, sid, n_tab, widths, stats=None):
+        out = real_grads(grads, sid, n_tab, widths, stats)
+        backs.append((grads, sid, n_tab, widths, out))
+        return out
+
+    # the wrappers count their launches on the module's names, these two
+    # here; this evaluation's counts are not read
+    gather_seen.launches = grads_seen.launches = 0
+    row_gather.gather_rows, row_gather.row_grads = gather_seen, grads_seen
+    try:
+        val_k, *leaf_k = loss_and_grads()
+    finally:
+        row_gather.gather_rows, row_gather.row_grads = real_gather, real_grads
+    engages = row_gather.engages
+    row_gather.engages = lambda table: False   # views of index_select rows
+    try:
+        val_i, *leaf_i = loss_and_grads()
+    finally:
+        row_gather.engages = engages
+    torch.cuda.synchronize()
+    check(len(gathers) == 3 * BOUNCES and len(backs) == 2 * BOUNCES,
+          f"phase 5h: {len(gathers)} gathers and {len(backs)} backward "
+          f"calls, not {3 * BOUNCES} and {2 * BOUNCES}")
+    for table, sid, widths in gathers:
+        got = torch.cat([g.reshape(sid.shape[0], -1)
+                         for g in real_gather(table, sid, widths)], 1)
+        check(torch.equal(got, table.index_select(0, sid.long())),
+              f"phase 5h: gather_rows of {sum(widths)} columns is not "
+              "index_select")
+    # exact gradients (multiples of 2**-10, |sum| < 2**14) on each call's
+    # ids, zero on the rays whose own gradients are all zero and None for
+    # the groups that had none: the sums are exact, so index_add_'s too
+    gen_d = torch.Generator(device=dev).manual_seed(18)
+    row_gather_calls = []
+    for grads, sid, n_tab, widths, out in backs:
+        n = sid.shape[0]
+
+        def nonzero(gs):
+            m = torch.zeros(n, dtype=torch.bool, device=dev)
+            for g in gs:
+                if g is not None:
+                    m |= (g.reshape(n, -1) != 0).any(1)
+            return m
+
+        live = nonzero(grads)
+        exact = [None if g is None else
+                 torch.randint(-2, 3, g.shape, generator=gen_d, device=dev)
+                 .float().div_(1024)
+                 .mul_(live.view(-1, *[1] * (g.dim() - 1)))
+                 for g in grads]
+        st = torch.zeros(2, dtype=torch.int64, device=dev)
+        got = real_grads(exact, sid, n_tab, widths, st)
+        rays, adds = st.tolist()
+        check(torch.equal(got, row_gather.row_grads_plain(exact, sid, n_tab,
+                                                          widths)),
+              f"phase 5h: row_grads of {sum(widths)} columns is not "
+              "index_add_ on exact gradients")
+        check(rays == int(nonzero(exact).sum())
+              and (0 < adds <= rays or rays == 0),
+              f"phase 5h: row_grads counted {rays} rays and {adds} adds")
+        # the step's own gradients: the float64 sum is the yardstick
+        st.zero_()
+        real_grads(grads, sid, n_tab, widths, st)
+        rays, adds = st.tolist()
+        g64 = [None if g is None else g.double() for g in grads]
+        sum64 = row_gather.row_grads_plain(g64, sid, n_tab, widths)
+        scale = row_gather.row_grads_plain(
+            [None if g is None else g.abs() for g in g64], sid, n_tab,
+            widths).norm(dim=1).clamp_min(1e-300)
+        lib = row_gather.row_grads_plain(grads, sid, n_tab, widths)
+        gap = ((out.double() - sum64).norm(dim=1) / scale).max().item()
+        lib_gap = ((lib.double() - sum64).norm(dim=1) / scale).max().item()
+        row_gather_calls.append(dict(
+            columns=sum(widths), rays=n, rays_summed=rays, row_adds=adds,
+            rays_per_add=rays / max(adds, 1), gap_vs_float64=gap,
+            index_add_gap_vs_float64=lib_gap))
+        check(rays == int(live.sum()),
+              "phase 5h: row_grads counted other rays than the step's")
+        check(gap <= ROW_RTOL, f"phase 5h: a row of row_grads lies {gap:.3g} "
+              f"of its summed magnitudes from the float64 sum (bar "
+              f"{ROW_RTOL:g})")
+        err["row_grads_kernel"] = max(err["row_grads_kernel"], gap)
+    leaf_gap = max(((a - b).norm() / b.norm()).item()
+                   for a, b in zip(leaf_k, leaf_i))
+    rays_per_add = (sum(c["rays_summed"] for c in row_gather_calls)
+                    / max(sum(c["row_adds"] for c in row_gather_calls), 1))
+    log(f"phase 5h: scene 1 {FRAME_W}x{FRAME_H}x{BOUNCES}: {len(gathers)} "
+        f"gathers bit for bit index_select; {len(backs)} backward calls bit "
+        "for bit index_add_ on exact gradients; on the step's own gradients "
+        "each row within "
+        + ", ".join(f"{c['gap_vs_float64']:.3g}" for c in row_gather_calls)
+        + " of its summed magnitudes from the float64 sum (index_add_: "
+        + ", ".join(f"{c['index_add_gap_vs_float64']:.3g}"
+                    for c in row_gather_calls)
+        + f"), {rays_per_add:.2f} rays a row add; against index_select's "
+        f"views: loss {val_k.item():.9g} / {val_i.item():.9g}, leaves' "
+        f"gradients {leaf_gap:.3g} apart (bar {LEAF_RTOL:g}); "
+        f"{time.perf_counter() - t:.1f}s")
+    check(val_k.item() == val_i.item(),
+          "phase 5h: the loss through the gather kernels is not the loss "
+          "through index_select")
+    check(leaf_gap <= LEAF_RTOL, "phase 5h: the gradients through the "
+          "gather kernels differ from those through index_select")
+    held["gather_rows_kernel"].append(
+        f"phase 5h: the {3 * BOUNCES} gathers of scene 1's grad leg at "
+        f"{FRAME_W}x{FRAME_H}, their own tables and ids: bit-exact "
+        "against index_select")
+    held["row_grads_kernel"].append(
+        f"phase 5h: the {2 * BOUNCES} backward calls of scene 1's grad leg "
+        f"at {FRAME_W}x{FRAME_H}: bit-exact against index_add_ on exact "
+        f"gradients at their ids, within {ROW_RTOL:g} of each row's summed "
+        "magnitudes of the float64 sum on their own gradients; the loss "
+        "bit for bit and the leaves' gradients within "
+        f"{LEAF_RTOL:g} of those through index_select")
+    return gathers, backs, row_gather_calls, rays_per_add
+
+
+def row_gather_times(gathers, backs, dev):
+    """ms (CUDA events), device ms (torch.profiler), host issue ms and the
+    bytes bound of gather_rows_kernel and row_grads_kernel on the largest
+    recorded call of each table (``row_gather_paths``), beside their plain
+    versions and the library's index_select / index_add_. Returns the two
+    {columns: dict}."""
+    import torch
+    from raytracer_tpu_torch.render import row_gather
+    k_gather, k_grads = {}, {}
+    for table, sid, widths in gathers:
+        w = sum(widths)
+        if sid.shape[0] >= k_gather.get(w, {}).get("rays", -1):
+            k_gather[w] = dict(rays=sid.shape[0], args=(table, sid, widths))
+    for grads, sid, n_tab, widths, _ in backs:
+        w = sum(widths)
+        if sid.shape[0] >= k_grads.get(w, {}).get("rays", -1):
+            k_grads[w] = dict(rays=sid.shape[0],
+                              args=(grads, sid, n_tab, widths))
+
+    def timed(fn, lib, plain):
+        return dict(ms=cuda_ms(fn, RESOLVE_CALLS),
+                    device_ms=device_ms(fn, RESOLVE_CALLS),
+                    host_ms=host_ms(fn, RESOLVE_CALLS),
+                    plain_ms=cuda_ms(plain, RESOLVE_CALLS),
+                    library_ms=cuda_ms(lib, RESOLVE_CALLS),
+                    library_device_ms=device_ms(lib, RESOLVE_CALLS,
+                                                csrc=False),
+                    library_host_ms=host_ms(lib, RESOLVE_CALLS))
+
+    for w, k in k_gather.items():
+        table, sid, widths = k.pop("args")
+        n, idx = sid.shape[0], sid.long()
+        bound, by = bound_of(in_bytes=n * 4 + table.numel() * 4,
+                             out_bytes=n * w * 4, ops=0)
+        k.update(timed(lambda: row_gather.gather_rows(table, sid, widths),
+                       lambda: table.index_select(0, idx),
+                       lambda: row_gather.gather_rows_plain(table, sid,
+                                                            widths)),
+                 columns=w, bound_ms=bound, bound_by=by)
+    for w, k in k_grads.items():
+        grads, sid, n_tab, widths = k.pop("args")
+        n, idx = sid.shape[0], sid.long()
+        cols = torch.cat([sid.new_zeros(n, v, dtype=torch.float32)
+                          if g is None else g.reshape(n, v)
+                          for g, v in zip(grads, widths)], 1)
+        acc = torch.zeros(n_tab, w, device=dev)
+        with_grad = sum(v for g, v in zip(grads, widths) if g is not None)
+        bound, by = bound_of(in_bytes=n * 4 + n * with_grad * 4,
+                             out_bytes=n_tab * w * 4, ops=0)
+        k.update(timed(lambda: row_gather.row_grads(grads, sid, n_tab,
+                                                    widths),
+                       lambda: acc.index_add_(0, idx, cols),
+                       lambda: row_gather.row_grads_plain(grads, sid, n_tab,
+                                                          widths)),
+                 columns=w, columns_with_grad=with_grad, bound_ms=bound,
+                 bound_by=by)
+    for name, ks, lib in (("gather_rows_kernel", k_gather, "index_select"),
+                          ("row_grads_kernel", k_grads, "index_add_")):
+        for w, k in sorted(ks.items()):
+            log(f"grad leg: {name} on {k['rays']} rays of {w} columns "
+                f"{k['ms']:.4f} ms (device {fmt(k['device_ms'], 4)}, host "
+                f"issue {k['host_ms']:.4f} ms), plain {k['plain_ms']:.4f} "
+                f"ms; {lib} {k['library_ms']:.4f} ms (device "
+                f"{fmt(k['library_device_ms'], 4)}, host issue "
+                f"{k['library_host_ms']:.4f} ms); bound "
+                f"{k['bound_ms']:.4f} ms ({k['bound_by']})")
+    return k_gather, k_grads
 
 
 def animated_paths(scenes, cfg, dev, gen, reset, read, names):
@@ -2371,8 +2634,11 @@ def sharded_paths(scenes, cfg, dev, reset, read, names, err):
         res[name] = loss_and_grads(mesh)
         torch.cuda.synchronize()
         got = read()
+        shards = 1 if mesh is None else 4
         want = {k: 0 for k in names}
-        want["closest_hit_kernel"] = 2 * BOUNCES * (1 if mesh is None else 4)
+        want["closest_hit_kernel"] = 2 * BOUNCES * shards
+        want["gather_rows_kernel"] = 3 * BOUNCES * shards
+        want["row_grads_kernel"] = 2 * BOUNCES * shards
         check(got == want, f"phase 8c: {name} launched {got}, not {want}")
     one_ms = cuda_ms(lambda: loss_and_grads(None), 5)
     four_ms = cuda_ms(lambda: loss_and_grads(mesh4), 5)

@@ -68,6 +68,20 @@
 //   table in shared memory by cp.async, each lane gates its ray against
 //   each run's box and the warp tests only the runs some lane passes,
 //   ROW_ILP rows a lane before its updates.
+// gather_rows_kernel and row_grads_kernel replace no TPU kernel: they are
+//   the inverse step's per-ray row gather (the attribute row that shades a
+//   hit, render/whitted.py, and the packed row that re-derives t,
+//   diff/kernel_vjp.py) and its backward, where the JAX package leaves
+//   both to XLA's gather and scatter-add (render/row_gather.py). The
+//   gather writes the rows column by column into one (W, n) array, whose
+//   rows the autograd function hands out as the column groups; its
+//   backward takes each group's gradient as it comes, so no slice of a
+//   gathered row needs a zero-filled backward. The backward
+//   sums a warp's gradients by shape id (__match_any_sync) before one lane
+//   a distinct id adds them to the table with atomics, and skips a ray
+//   whose gradients are all zero (missed and parked rays): index_add_
+//   issues an atomic for every ray and column, and most of them contend on
+//   a few rows (row 0 takes every missed and parked ray).
 //
 // What bounds them on this card: the walks are bound by operations, not
 // bytes. The tables (0.25 MB for scene 1, 0.85 MB for scene 2) stay in L2
@@ -441,6 +455,118 @@ brute_kernel(Runs s, const float* __restrict__ o,
   }
 }
 
+// gather_rows_kernel and row_grads_kernel: one ray a thread, in blocks of
+// GR_BLOCK threads, over a table of W columns (the attribute table's 15,
+// the packed rows' 24). The gather writes column c of ray i at
+// out[c * n + i], a (W, n) array whose rows its caller hands out as the
+// column groups. The backward reads column c of ray i at
+// g.ptr[c][i * g.stride[c]], each column where its gradient tensor keeps
+// it. Both are bound by bytes (a row of W floats from L2 in, W floats
+// out; W gradients in, a few atomics out).
+constexpr int GR_BLOCK = 256, GR_MAX_W = 24;
+
+struct ColumnsIn {
+  const float* ptr[GR_MAX_W];  // null: the column has no gradient
+  long long stride[GR_MAX_W];
+};
+
+// The row of shape id s, clamped to the table (ids come from the closest-
+// hit kernels, 0 on a miss, so a clamp changes none of them).
+__device__ __forceinline__ int table_row(int s, int n_tab) {
+  return s < 0 ? 0 : (s < n_tab ? s : n_tab - 1);
+}
+
+// tab: (n_tab, W) rows, 16-byte aligned; out: (W, n). A copy, bit for
+// bit index_select, each column's writes coalesced.
+template <int W>
+__global__ void __launch_bounds__(GR_BLOCK)
+gather_rows_kernel(const float* __restrict__ tab, int n_tab,
+                   const int* __restrict__ sid, int n,
+                   float* __restrict__ out) {
+  int i = blockIdx.x * GR_BLOCK + (int)threadIdx.x;
+  if (i >= n) return;
+  const float* row = tab + (long long)table_row(sid[i], n_tab) * W;
+  float v[W];
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q) {
+      float4 x = __ldg(reinterpret_cast<const float4*>(row) + q);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < W; ++c) v[c] = __ldg(row + c);
+  }
+#pragma unroll
+  for (int c = 0; c < W; ++c) out[(long long)c * n + i] = v[c];
+}
+
+// The table's gradient: out (n_tab, W), zero on entry, += each ray's
+// column gradients at its row. A ray whose gradients are all zero adds
+// nothing (x + 0 = x) and is left out. The lanes of a warp with one id
+// (peers, by __match_any_sync) sum their gradients by a tree over the
+// peers, shuffling every column at each level; the lowest lane of each id
+// adds the sums that are not zero with one atomicAdd a column. Every
+// thread of a warp stays to the end (the shuffles need all 32): a thread
+// past n is a lane with no gradient. stats: the rays summed (0) and the
+// row adds issued, one a distinct id in a warp (1).
+template <int W>
+__global__ void __launch_bounds__(GR_BLOCK)
+row_grads_kernel(ColumnsIn g, const int* __restrict__ sid, int n, int n_tab,
+                 float* __restrict__ out, unsigned long long* stats) {
+  constexpr unsigned FULL = 0xffffffffu;
+  int i = blockIdx.x * GR_BLOCK + (int)threadIdx.x;
+  int lane = (int)(threadIdx.x & 31);
+  float v[W];
+  bool nz = false;
+  int s = 0;
+#pragma unroll
+  for (int c = 0; c < W; ++c) v[c] = 0.0f;
+  if (i < n) {
+    s = table_row(sid[i], n_tab);
+#pragma unroll
+    for (int c = 0; c < W; ++c) {
+      if (g.ptr[c] != nullptr) v[c] = g.ptr[c][(long long)i * g.stride[c]];
+      nz |= v[c] != 0.0f;  // a NaN is not zero, and is added
+    }
+  }
+  unsigned live = __ballot_sync(FULL, nz);
+  if (live == 0) return;  // the whole warp: nothing to add
+  // a lane with nothing to add is a group of its own (ids are >= 0)
+  unsigned peers = __match_any_sync(FULL, nz ? s : -1 - lane);
+  int rank = __popc(peers & ((1u << lane) - 1));
+  unsigned above = peers & (0xfffffffeu << lane);
+  // each level: a lane adds the partial sum of the next peer above it that
+  // is still in; the lanes of odd rank then drop out, and the ranks halve.
+  // The lowest lane of each group ends with the group's sum.
+  while (__any_sync(FULL, above != 0u)) {
+    int next = above != 0u ? __ffs(above) - 1 : lane;
+#pragma unroll
+    for (int c = 0; c < W; ++c) {
+      if (g.ptr[c] == nullptr) continue;  // the same for the whole warp
+      float t = __shfl_sync(FULL, v[c], next);
+      if (above != 0u) v[c] += t;
+    }
+    above &= ~__ballot_sync(FULL, (rank & 1) != 0);
+    rank >>= 1;
+  }
+  bool lead = nz && (__ffs(peers) - 1 == lane);
+  unsigned leads = __ballot_sync(FULL, lead);
+  if (lead) {
+    float* dst = out + (long long)s * W;
+#pragma unroll
+    for (int c = 0; c < W; ++c)
+      if (g.ptr[c] != nullptr && v[c] != 0.0f) atomicAdd(dst + c, v[c]);
+  }
+  if (stats != nullptr && lane == 0) {
+    atomicAdd(stats + 0, (unsigned long long)__popc(live));
+    atomicAdd(stats + 1, (unsigned long long)__popc(leads));
+  }
+}
+
 }  // namespace rt
 
 extern "C" {
@@ -613,6 +739,46 @@ int rt_brute(const float* rows, const float* runs, int n_runs, int n_sph,
     if (gate) RT_LAUNCH(false, true); else RT_LAUNCH(false, false);
   }
 #undef RT_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// out: (w, n) f32. grads: w column pointers (null: no gradient) and their
+// strides in elements, host arrays read before the launch. w: 15 or 24
+// (ATTR_W, PACK_WIDTH).
+int rt_gather_rows(const float* tab, int n_tab, int w, const int* sid, int n,
+                   float* out, void* stream) {
+  int grid = (n + rt::GR_BLOCK - 1) / rt::GR_BLOCK;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (w == 15)
+    rt::gather_rows_kernel<15><<<grid, rt::GR_BLOCK, 0, st>>>(tab, n_tab, sid,
+                                                              n, out);
+  else if (w == 24)
+    rt::gather_rows_kernel<24><<<grid, rt::GR_BLOCK, 0, st>>>(tab, n_tab, sid,
+                                                              n, out);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+int rt_row_grads(const float* const* grads, const long long* strides, int w,
+                 const int* sid, int n, int n_tab, float* out,
+                 unsigned long long* stats, void* stream) {
+  rt::ColumnsIn c = {};
+  if (w > rt::GR_MAX_W) return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < w; ++k) {
+    c.ptr[k] = grads[k];
+    c.stride[k] = strides[k];
+  }
+  int grid = (n + rt::GR_BLOCK - 1) / rt::GR_BLOCK;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (w == 15)
+    rt::row_grads_kernel<15><<<grid, rt::GR_BLOCK, 0, st>>>(c, sid, n, n_tab,
+                                                            out, stats);
+  else if (w == 24)
+    rt::row_grads_kernel<24><<<grid, rt::GR_BLOCK, 0, st>>>(c, sid, n, n_tab,
+                                                            out, stats);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

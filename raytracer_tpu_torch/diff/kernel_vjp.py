@@ -13,9 +13,19 @@ gradients flow through the continuous terms:
   3. the Whitted loop differentiates through hit points, normals and
      Phong as it does for any tensor.
 
-The JAX package has no backward kernel either: its gradients are autodiff
-through XLA ops, and these are autograd through PyTorch ops. The
-re-derivation tests one shape per ray, O(R) against the kernel's walk.
+The packed rows' 24 columns are gathered by ``render/row_gather.py``,
+and ``intersect_rows`` takes them as they are. Where autograd records the
+gather on the card, ``gather_rows_kernel`` writes each column as an array
+of its own and the backward, ``row_grads_kernel``, sums a warp's column
+gradients by shape id before it adds them to the rows (the rays of a
+miss, and of the shadow rays, carry none and are skipped). Elsewhere the
+columns are views of an ``index_select`` row, whose backward is
+``index_add_``.
+
+The JAX package has no backward kernel: its gradients are autodiff
+through XLA ops, and the rest of these are autograd through PyTorch ops.
+The re-derivation tests one shape per ray, O(R) against the kernel's
+walk.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import torch
 
 from raytracer_tpu_torch.core.scene import FlatScene
 from raytracer_tpu_torch.geom import rowwise
+from raytracer_tpu_torch.render import row_gather
 
 
 def make_differentiable_closest(scene: FlatScene, fast_closest,
@@ -38,8 +49,8 @@ def make_differentiable_closest(scene: FlatScene, fast_closest,
     def closest(o, d):
         t_fast, sid, hit = fast_closest(o.detach().contiguous(),
                                         d.detach().contiguous())
-        row = rows.index_select(0, sid.long())   # backward: index_add_
-        t_diff, _ = rowwise.intersect_rows(row, o, d, use_mt)
+        cols = row_gather.gather(rows, sid, row_gather.PACK_GROUPS)
+        t_diff, _ = rowwise.intersect_rows(cols, o, d, use_mt)
         ok = torch.isfinite(t_diff) & (t_diff < 1e29)
         return torch.where(hit & ok, t_diff, t_fast), sid, hit
 

@@ -68,23 +68,27 @@ def pack_rows(scene: FlatScene) -> torch.Tensor:
     ], dim=1)
 
 
-def intersect_rows(rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+def intersect_rows(rows, o: torch.Tensor, d: torch.Tensor,
                    use_mt: bool = False):
     """Intersect lane i's ray (o[i], d[i]) with lane i's packed row
-    rows[i]: rows (..., PACK_WIDTH), o, d (..., 3), broadcasting. Returns
-    (t, inner), t = INF where not inner. Every sum is added left to right
-    and every operation rounded on its own, as the CUDA kernels
-    (csrc/raytrace.cuh::row_intersect) compute it; the square root is
-    correctly rounded (``sqrt_rn``)."""
-    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
-    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
-    typ = rows[..., 0]
+    rows[i]: rows (..., PACK_WIDTH), or its PACK_WIDTH columns (...) as a
+    sequence (``render/row_gather.py`` gathers them so), o, d (..., 3),
+    broadcasting. Returns (t, inner), t = INF where not inner. Every sum
+    is added left to right and every operation rounded on its own, as the
+    CUDA kernels (csrc/raytrace.cuh::row_intersect) compute it; the square
+    root is correctly rounded (``sqrt_rn``)."""
+    # one unbind a tensor: its backward stacks the columns' gradients once,
+    # where a slice a column would back up through a zero-filled copy
+    col = rows.unbind(-1) if isinstance(rows, torch.Tensor) else rows
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    typ = col[0]
 
     # sphere
-    ocx = ox - rows[..., 1]
-    ocy = oy - rows[..., 2]
-    ocz = oz - rows[..., 3]
-    r = rows[..., 4]
+    ocx = ox - col[1]
+    ocy = oy - col[2]
+    ocz = oz - col[3]
+    r = col[4]
     aa = dx * dx + dy * dy + dz * dz
     bb = 2.0 * (dx * ocx + dy * ocy + dz * ocz)
     cc = ocx * ocx + ocy * ocy + ocz * ocz - r * r
@@ -94,30 +98,30 @@ def intersect_rows(rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     v_sph = (disc > 0) & (t_sph > 0)
 
     # plane family
-    nx, ny, nz = rows[..., 5], rows[..., 6], rows[..., 7]
+    nx, ny, nz = col[5], col[6], col[7]
     d_n = dx * nx + dy * ny + dz * nz
     o_n = ox * nx + oy * ny + oz * nz
-    t_pl = -(rows[..., 8] + o_n) / torch.where(d_n == 0, 1.0, d_n)
+    t_pl = -(col[8] + o_n) / torch.where(d_n == 0, 1.0, d_n)
     v_pl = (d_n > 0) & (t_pl > 0)
     tw = torch.where(v_pl, t_pl, 0.0)
     hx, hy, hz = ox + tw * dx, oy + tw * dy, oz + tw * dz
 
-    v1x, v1y, v1z = rows[..., 9], rows[..., 10], rows[..., 11]
-    v2x, v2y, v2z = rows[..., 12], rows[..., 13], rows[..., 14]
-    s0, s1, s2, s3, s4 = (rows[..., 18], rows[..., 19], rows[..., 20],
-                          rows[..., 21], rows[..., 22])
+    v1x, v1y, v1z = col[9], col[10], col[11]
+    v2x, v2y, v2z = col[12], col[13], col[14]
+    s0, s1, s2, s3, s4 = (col[18], col[19], col[20],
+                          col[21], col[22])
 
     # wall: V1=u, V2=v, s0=dot(start,u), s1=dot(start,v), s2=w, s3=h
     u_proj = hx * v1x + hy * v1y + hz * v1z - s0
     v_proj = hx * v2x + hy * v2y + hz * v2z - s1
     outside_w = (u_proj < 0) | (u_proj > s2) | (v_proj < 0) | (v_proj > s3)
-    v_wall = v_pl & ((rows[..., 23] > 0) | ~outside_w)
+    v_wall = v_pl & ((col[23] > 0) | ~outside_w)
 
     # triangle
     if use_mt:
-        smx = ox - rows[..., 15]
-        smy = oy - rows[..., 16]
-        smz = oz - rows[..., 17]
+        smx = ox - col[15]
+        smy = oy - col[16]
+        smz = oz - col[17]
         hcx = dy * v2z - dz * v2y
         hcy = dz * v2x - dx * v2z
         hcz = dx * v2y - dy * v2x

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "rt_packet": [_P] * 5 + [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
     "rt_brute": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P,
                  _P],
+    "rt_gather_rows": [_P, _I, _I, _P, _I, _P, _P],
+    "rt_row_grads": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
 }
 
 

@@ -13,7 +13,8 @@ hit that provides the attributes (``closest_attrs_kernel``) and neither;
 the differentiable route and the packet, brute-force and wavefront
 renderers pass neither, and take the JAX function's row gather and
 closest-hit shadow ray (or, for the packet renderer's any-hit variant,
-``occlusion_fn``).
+``occlusion_fn``). Where autograd records that gather on the card (the
+differentiable route's), it is ``render/row_gather.py``'s kernels.
 
 Quirks preserved (the JAX module's checklist): a miss adds attenuation x
 background and ends the ray; shadows darken x0.3; reflection only where
@@ -31,7 +32,7 @@ import torch
 from raytracer_tpu_torch.core.scene import SPHERE, FlatScene
 from raytracer_tpu_torch.core.types import normalize
 from raytracer_tpu_torch.geom.direct import reflect, sqrt_rn
-from raytracer_tpu_torch.render import shading
+from raytracer_tpu_torch.render import row_gather, shading
 
 # Terminated lanes are parked on a ray that misses every box and shape at
 # the first test (origin far beyond the scene, pointing away).
@@ -180,18 +181,20 @@ def trace(scene: FlatScene, light, closest_hit_fn, o: torch.Tensor,
             n, mat_color, k_a, k_d, k_s, k_f, shin = resolve_fn(
                 attr_tab, sid.to(torch.float32), p)
         else:
-            # one row gather; index_select's backward adds the rows' grads
-            # with index_add_ (an index's backward sorts the indices, and
-            # serialises the long runs of one id: most rays hit one shape)
-            row = attr_tab.index_select(0, sid.long())
-            mat_color = row[:, 3:6]
-            k_a, k_d, k_s, k_f, shin = row[:, 6:11].unbind(1)
+            # one row gather (render/row_gather.py): under autograd on the
+            # card its kernels, whose backward skips rays without gradient
+            # and sums a warp's gradients by shape id before its atomics,
+            # where index_add_ takes one a ray and column, most of them on
+            # a few rows (every missed and parked ray adds to row 0)
+            (n_pl, mat_color, k_a, k_d, k_s, k_f, shin, center,
+             is_sph) = row_gather.gather(attr_tab, sid,
+                                         row_gather.ATTR_GROUPS)
             # plane family from the table; spheres from the hit point
             # (1 / a correctly rounded root where JAX takes lax.rsqrt)
-            rel = p - row[:, 11:14]
+            rel = p - center
             inv = 1.0 / sqrt_rn(shading._dot(rel, rel)[:, None] + 1e-30)
-            is_sph = row[:, 14:15]
-            n = is_sph * (rel * inv) + (1.0 - is_sph) * row[:, 0:3]
+            is_sph = is_sph[:, None]
+            n = is_sph * (rel * inv) + (1.0 - is_sph) * n_pl
 
         # shadow ray (comp:466-480 / 562-580), unless fused_fn answered it
         if not use_fused and cfg.enable_shadows:

@@ -5,6 +5,7 @@ brute, of the frames that run them, and of the grad leg and the fit step
 that run closest_hit.
 
     python3 tools/kernel_ab.py LABEL=DIR [LABEL=DIR ...] [--order a,b,b,a]
+        [--rows]
 
 Each DIR holds a copy of ``raytracer_tpu_torch/``: the repo itself (``.``),
 another commit unpacked with ``git archive`` into a git-ignored directory,
@@ -49,6 +50,15 @@ the grad leg and the fit step on scene 1 (``time_fit``), and the
 registers and spills of the kernels. The timers are those of this checkout's
 chip_smoke.py, whatever the copy holds. The card's name and power limit
 come first.
+
+On each scene at 1920x1080 x 3 bounces (the fit cells' size) it also
+times a fit's loss and gradients (``time_row_gather``), and, where the
+copy has ``render/row_gather.py``, the same through ``index_select`` in
+the same process, the row gather's kernels on that step's own ray ids
+and gradients beside ``index_select`` and ``index_add_`` (the yardstick),
+and one bounce's gather and backward beside the slices of an
+``index_select`` row that the renderers took before. ``--rows`` times
+only that part.
 """
 import importlib.util
 import json
@@ -59,6 +69,7 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESOLVE_CALLS, PACKET_CALLS, REPEATS = 50, 10, 3
 FIT_CALLS, FIT_W, FIT_H = 5, 800, 600
+GATHER_W, GATHER_H, GATHER_CALLS = 1920, 1080, 10
 KERNELS = ("wholeframe", "resolve", "packet_kernel", "occlusion",
            "closest_hit", "brute_kernel", "fused", "closest_attrs")
 
@@ -71,7 +82,7 @@ def smoke():
     return mod
 
 
-def time_one(label, root):
+def time_one(label, root, rows_only=False):
     """Time the copy at ``root`` (its kernels already built)."""
     sys.path.insert(0, root)
     import torch
@@ -95,6 +106,13 @@ def time_one(label, root):
         name: f"{regs}, {spill}" for name, regs, spill in cs.ptxas_summary(log)
         if name.startswith(KERNELS)})
     ok = True
+    if rows_only:
+        for which in (1, 2):
+            r = out[f"scene {which}"] = {}
+            ok &= time_row_gather(r, cs, which)
+        out["bit_exact"] = bool(ok)
+        print("RESULT", label, json.dumps(out), flush=True)
+        return 0 if ok else 1
     gen = torch.Generator().manual_seed(5)
     for which in (1, 2):
         sc = generate_scene(which, device=dev)
@@ -179,6 +197,7 @@ def time_one(label, root):
             ok &= time_fit(r, cs, sc, lin, split)
         ok &= time_frames(r, cs, wf, packet, sc, lin, split, tab15,
                           RenderConfig(), which)
+        ok &= time_row_gather(r, cs, which)
         out[f"scene {which}"] = r
     out["bit_exact"] = bool(ok)
     print("RESULT", label, json.dumps(out), flush=True)
@@ -465,9 +484,152 @@ def time_fit(r, cs, sc, lin, split):
         bool(torch.isfinite(g).all()) for g in grads)
 
 
+def time_row_gather(r, cs, which):
+    """A fit's loss and gradients at GATHER_W x GATHER_H x 3 bounces on
+    scene ``which`` (16:9 camera; every sphere's centre, sphere 0's moved
+    by 0.3, and every shape's colour, shape 0's x 0.8; MSE against the
+    unmoved image): call ms (CUDA events), device busy ms, idle share and
+    the ten costliest kernels of one call (torch.profiler). Where the copy
+    has the row gather (``render/row_gather.py``): the same through
+    ``index_select`` (``engages`` off) in this process; then, on the ids
+    and gradients of each of the step's ``row_grads`` calls, device and
+    call ms of ``gather_rows`` beside ``index_select`` and of
+    ``row_grads`` beside ``index_add_`` (the gradients concatenated
+    beforehand), its counts (rays summed, row adds; ``stats``) and the
+    bit-exactness of the gather; and on the largest call of each table,
+    one bounce's gather and backward (``torch.autograd.grad``) beside the
+    slices of an ``index_select`` row. False unless the gradients are
+    finite and the gathers exact."""
+    import torch
+    from raytracer_tpu_torch.accel import build_bvh, linearize
+    from raytracer_tpu_torch.config import RenderConfig
+    from raytracer_tpu_torch.geom import rowwise
+    from raytracer_tpu_torch.render import split as split_mod
+    from raytracer_tpu_torch.render import split_scene, whitted
+    from raytracer_tpu_torch.scenes import generate_scene
+    try:
+        from raytracer_tpu_torch.render import row_gather
+    except ImportError:
+        row_gather = None
+    dev = torch.device("cuda")
+    sc = generate_scene(which, aspect=GATHER_W / GATHER_H, device=dev)
+    lin = linearize(build_bvh(sc.flat, sc.bvh_max_depth))
+    split = split_scene.prepare(sc.flat, lin, device=dev)
+    cfg = RenderConfig(width=GATHER_W, height=GATHER_H, max_bounces=3)
+    flat = sc.flat
+    with torch.no_grad():
+        target = split_mod.render(flat, lin, sc.camera, sc.light, cfg,
+                                  split=split, differentiable=True,
+                                  device=dev)
+    leaves = [torch.cat([flat.sphere_center[:1] + 0.3,
+                         flat.sphere_center[1:]]).requires_grad_(True),
+              torch.cat([flat.mat_color[:1] * 0.8,
+                         flat.mat_color[1:]]).requires_grad_(True)]
+
+    def fwd_bwd():
+        s_ = flat.replace(sphere_center=leaves[0], mat_color=leaves[1])
+        img = split_mod.render(s_, lin, sc.camera, sc.light, cfg,
+                               split=split, differentiable=True, device=dev)
+        return torch.autograd.grad(((img - target) ** 2).mean(), leaves)
+
+    def step_times(key):
+        grads = fwd_bwd()
+        r[f"{key}_ms"] = [cs.cuda_ms(fwd_bwd, FIT_CALLS)
+                          for _ in range(REPEATS)]
+        times = cs.kernel_times(fwd_bwd)
+        if times:
+            busy = sum(t for _, t, _ in times)
+            r[f"{key}_device_busy_ms"] = busy
+            r[f"{key}_idle_share"] = 1 - busy / min(r[f"{key}_ms"])
+            r[f"{key}_top_kernels"] = [
+                (k[:60], round(t, 4), c) for k, t, c in
+                sorted(times, key=lambda x: -x[1])[:10]]
+        return all(bool(torch.isfinite(g).all()) for g in grads)
+
+    ok = step_times("gather_fit_fwd_bwd")
+    if row_gather is None:
+        return ok
+    real = row_gather.row_grads
+    row_gather.engages, engages = (lambda table: False), row_gather.engages
+    try:
+        ok &= step_times("gather_fit_fwd_bwd_index_select")
+    finally:
+        row_gather.engages = engages
+    calls = []
+
+    def recording(grads, sid, n_tab, widths, stats=None):
+        calls.append((grads, sid, n_tab, widths))
+        return real(grads, sid, n_tab, widths, stats)
+
+    # the wrapper counts its launches on the module's row_grads: this one
+    recording.launches = 0
+    row_gather.row_grads = recording
+    try:
+        fwd_bwd()
+    finally:
+        row_gather.row_grads = real
+    tables = {row_gather.ATTR_GROUPS: whitted._attr_table(flat).detach(),
+              row_gather.PACK_GROUPS: rowwise.pack_rows(flat).detach()}
+    rows, largest = [], {}
+    for grads, sid, n_tab, widths in calls:
+        tab = tables[widths]
+        n = sid.shape[0]
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        real(grads, sid, n_tab, widths, stats)
+        cat = torch.cat([tab.new_zeros(n, w) if g is None else g.reshape(n, w)
+                         for g, w in zip(grads, widths)], 1)
+        idx = sid.long()
+        got = torch.cat([g.reshape(n, -1) for g in
+                         row_gather.gather_rows(tab, sid, widths)], 1)
+        ok &= torch.equal(got, tab.index_select(0, idx))
+
+        def timed(fn, csrc):
+            return dict(device_ms=cs.device_ms(fn, GATHER_CALLS, csrc=csrc),
+                        call_ms=cs.cuda_ms(fn, GATHER_CALLS))
+        rays, adds = stats.tolist()
+        rows.append(dict(
+            columns=sum(widths), rays_summed=rays, row_adds=adds,
+            rays_per_add=rays / max(adds, 1),
+            gather_rows=timed(lambda: row_gather.gather_rows(tab, sid,
+                                                              widths), True),
+            index_select=timed(lambda: tab.index_select(0, idx), False),
+            row_grads=timed(lambda: real(grads, sid, n_tab, widths), False),
+            index_add=timed(lambda: torch.zeros_like(tab).index_add_(
+                0, idx, cat), False)))
+        if rays >= largest.get(widths, (-1,))[0]:
+            largest[widths] = (rays, grads, sid)
+    r["gather_calls"] = rows
+    r["gather_rays_per_add"] = (sum(x["rays_summed"] for x in rows)
+                                / max(sum(x["row_adds"] for x in rows), 1))
+    for widths, (_, grads, sid) in largest.items():
+        tab = tables[widths].clone().requires_grad_(True)
+        keep = [k for k, g in enumerate(grads) if g is not None]
+        gs = [grads[k] for k in keep]
+
+        def sliced():
+            row = tab.index_select(0, sid.long())
+            cuts, c = [], 0
+            for w in widths:
+                cuts.append(row[:, c] if w == 1 else row[:, c:c + w])
+                c += w
+            return torch.autograd.grad([cuts[k] for k in keep], tab, gs)
+
+        def op():
+            groups = row_gather.gather(tab, sid, widths)
+            return torch.autograd.grad([groups[k] for k in keep], tab, gs)
+        r[f"bounce_chain_{sum(widths)}"] = {
+            name: dict(device_ms=cs.device_ms(fn, GATHER_CALLS, csrc=False),
+                       call_ms=cs.cuda_ms(fn, GATHER_CALLS))
+            for name, fn in (("op", op), ("slices_index_select", sliced))}
+    return ok
+
+
 def main(argv):
     if argv[:1] == ["--one"]:
-        return time_one(argv[1], os.path.abspath(argv[2]))
+        return time_one(argv[1], os.path.abspath(argv[2]),
+                        rows_only=argv[3:] == ["--rows"])
+    rows_only = "--rows" in argv
+    argv = [a for a in argv if a != "--rows"]
     order = None
     if "--order" in argv:
         i = argv.index("--order")
@@ -489,8 +651,8 @@ def main(argv):
     rc = 0
     for label in order:
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--one", label,
-                              os.path.abspath(roots[label])]).returncode
+                              "--one", label, os.path.abspath(roots[label])]
+                             + ["--rows"] * rows_only).returncode
     return rc
 
 
